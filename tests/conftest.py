@@ -24,6 +24,11 @@ except ImportError:
     pass
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)
