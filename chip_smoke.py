@@ -17,7 +17,18 @@ Phases (each prints its lines; any failure exits non-zero):
      inputs (bf16, and cast to f32) and on edge cases, with CUDA-event
      times of kernel, plain version and one PyTorch library call;
   5. the f32 smoke configuration served on the card against the same
-     engine on the CPU: greedy tokens equal, logits within atol 1e-3.
+     engine on the CPU: greedy tokens equal, logits within atol 1e-3;
+  6. [restore] the storage walkthrough
+     (``repro_torch.examples.compression_demo.walkthrough``) at Qwen2.5-7B
+     full width (28 layers, bf16 weights, random from seed 0): 8 agents,
+     private prefix 32, one 128-token shared block each (S 1056, nb 33),
+     collective recovery, Master + 7 mirrors, then every mirror restored
+     by the family kernel (ONE launch), the per-mirror kernel (7
+     launches) and the dense torch path, bit-equal; counts zeroed just
+     before and read just after. Then each restore kernel against its
+     plain version on that family (and a bf16 copy of it), aligned and
+     with shifted frames, with CUDA-event times of (a) the family
+     kernel, (b) the 7 per-mirror launches summed and (c) the dense path.
 The line before the last is the kernel table as JSON; the last line is
 the result as JSON.
 """
@@ -45,8 +56,13 @@ REPLACES = {
     "block_diff": "src/repro/kernels/block_diff.py:43",
     "flash_prefill": "src/repro/kernels/flash_prefill.py:130",
     "flash_decode_paged": "src/repro/kernels/flash_decode.py:231",
+    "fused_diff_restore": "src/repro/kernels/diff_restore.py:116",
+    "fused_family_restore": "src/repro/kernels/diff_restore.py:190",
 }
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
+SOURCES.update(
+    fused_diff_restore="src/repro_torch/kernels/csrc/diff_restore.cu",
+    fused_family_restore="src/repro_torch/kernels/csrc/diff_restore.cu")
 # kernel vs plain version on the same inputs: f32 results differ by
 # summation order / FMA contraction; bf16 results by one or two bf16 ulps
 # of rounding the same f32 value
@@ -227,7 +243,8 @@ def main_path(dev):
     say(f"[main] serve {wall:.2f} s for {len(stats)} rounds, peak device "
         f"memory {peak:.2f} GiB")
     say(f"[main] launches {launches}  plain-version calls {plain}")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in ("rope_align", "block_diff", "flash_prefill",
+                           "flash_decode_paged") if launches[k] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     assert not any(plain.values()), f"plain versions ran: {plain}"
     del engine, params
@@ -385,14 +402,23 @@ def kernels(dev, launches, kept):
         library_ms=timer(lambda: F.scaled_dot_product_attention(
             q4, kd, vd, attn_mask=mask, enable_gqa=True))))
 
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    return table_rows(rows)
+
+
+def table_rows(rows):
+    """Print each kernel's line and return its entries of the kernel
+    table (the JSON line)."""
     table = []
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
-                 replaces=REPLACES[r["name"]], launches=launches[r["name"]])
+                 replaces=REPLACES[r["name"]])
         say(f"[kernel] {r['name']}: shape {r['shape']}, {r['ms']:.4f} ms "
             f"(plain {r['plain_ms']:.4f}, library {r['library_ms']}, bound "
             f"{r['bound_ms']:.4f} by {r['bound_by']}), max abs err "
-            f"{r['max_abs_err']:.3g} bf16 / {r['max_abs_err_f32']:.3g} f32, "
+            f"{r['max_abs_err']:.3g} at the path's dtype / "
+            f"{r['max_abs_err_f32']:.3g} in f32, "
             f"{r['launches']} launches on the main path")
         table.append({k: r[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -438,6 +464,180 @@ def smoke_parity(dev):
         f"diff| {worst:.3g} (atol 1e-3)")
 
 
+# ------------------------------------------------------------- phase 6
+def restore(dev):
+    """The storage walkthrough at full width and the two restore kernels
+    on its family; returns their kernel-table rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.diff_store import MirrorDiff, MirrorHandle, \
+        pack_family
+    from repro_torch.core.restore import dense_restore_paged
+    from repro_torch.examples.compression_demo import group_tokens, \
+        walkthrough
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import init_params
+
+    cfg = get_config("qwen2.5-7b")
+    params = init_params(cfg, 0, device=dev)
+    tokens = group_tokens(cfg.vocab_size, 8, priv_len=32, block_len=128,
+                          seed=1)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    wt = walkthrough(params, cfg, tokens, 32, ratio=0.05,
+                     log=lambda *a: say("[restore]", *a))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    plain = dict(ops.PLAIN_CALLS)
+    say(f"[restore] walkthrough {wall:.2f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, launches "
+        f"{launches}, plain-version calls {plain}")
+    M = len(wt.handles)
+    assert M == 7, M
+    missing = [k for k in ("rope_align", "block_diff", "flash_prefill",
+                           "fused_diff_restore", "fused_family_restore")
+               if launches[k] == 0]
+    assert not missing, f"kernels never launched on the restore path: " \
+        f"{missing}"
+    assert launches["fused_family_restore"] == 1, launches
+    assert launches["fused_diff_restore"] == M, launches
+    assert not any(plain.values()), f"plain versions ran: {plain}"
+    st = wt.stats
+    say(f"[restore] compression: {st['n_caches']} caches, dense "
+        f"{st['dense_bytes']} B, stored {st['stored_bytes']} B, family "
+        f"{st['compression_ratio']:.4f}x, per mirror "
+        f"{st['per_mirror_ratio']:.4f}x, changed blocks "
+        f"{[h.diff.n_blocks for h in wt.handles]} of {st['total_blocks']}")
+    del params
+    torch.cuda.empty_cache()
+
+    theta = cfg.rope_theta
+    timer = Timer(dev)
+    L, S, KV, hd = wt.master.k.shape
+    bt = wt.handles[0].diff.block_tokens
+    nb = S // bt
+    assert nb * bt == S, (S, bt)
+    maps = wt.slot_maps
+    pack = pack_family(wt.handles)
+    shifted = []
+    rng = np.random.default_rng(0)
+    for h in wt.handles:
+        d = h.diff
+        new = (d.old_pos + rng.integers(1, 2000, d.old_pos.shape)).astype(
+            np.int32)
+        shifted.append(MirrorHandle(h.master, MirrorDiff(
+            d.rid, d.master_rid, d.block_idx, d.k_vals, d.v_vals, d.old_pos,
+            new, d.seq_len, bt)))
+    spack = pack_family(shifted)
+
+    def pools(dt):
+        pk = torch.zeros((L, M * nb, bt, KV, hd), dtype=dt, device=dev)
+        return pk, torch.zeros_like(pk)
+
+    def inputs(dt, pk):
+        kb = wt.master.k.reshape(L, nb, bt, KV, hd).to(dt).contiguous()
+        vb = wt.master.v.reshape(L, nb, bt, KV, hd).to(dt).contiguous()
+        return (kb, vb, pk.diff_k.to(dt), pk.diff_v.to(dt), pk.diff_slot,
+                maps, pk.delta_pos)
+
+    def dev_maps(a):
+        return [torch.as_tensor(x, device=dev) for x in a]
+
+    def family_plain(x, out):
+        return ref.fused_family_restore_ref(*x[:4], *dev_maps(x[4:]), theta,
+                                            *out)
+
+    def mirror_plain(x, out):
+        for m in range(M):
+            out = ref.fused_diff_restore_ref(
+                x[0], x[1], x[2][m], x[3][m],
+                *dev_maps((x[4][m], x[5][m], x[6][m])), theta, *out)
+        return out
+
+    def launchers(x, out_family, out_mirror):
+        fam = ops.restore_launcher("fused_family_restore", *x, theta,
+                                   *out_family)
+        per = [ops.restore_launcher(
+            "fused_diff_restore", x[0], x[1], x[2][m:m + 1], x[3][m:m + 1],
+            x[4][m:m + 1], x[5][m:m + 1], x[6][m:m + 1], theta, *out_mirror)
+            for m in range(M)]
+        return fam, per
+
+    # bytes the family restore must move: the Master blocks some mirror
+    # takes (no diff there), each mirror's real diff rows and its nb pages
+    # written, K and V over all layers; plus the maps and the frequency
+    # table. Per mirror, each launch reads nb blocks and writes nb pages.
+    blk = L * bt * KV * hd
+    need_master = int((pack.diff_slot < 0).any(axis=0).sum())
+    n_diff = int((pack.diff_slot >= 0).sum())
+    map_b = 4 * (2 * M * nb + M * nb * bt) + 4 * hd // 2
+
+    errs, times = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        item = torch.tensor([], dtype=dt).element_size()
+        for name, pk in (("aligned", pack), ("shifted", spack)):
+            x = inputs(dt, pk)
+            want = family_plain(x, pools(dt))
+            fam, per = launchers(x, pools(dt), pools(dt))
+            got_f = fam()
+            for f in per:
+                got_m = f()
+            for kname, got in (("fused_family_restore", got_f),
+                               ("fused_diff_restore", got_m)):
+                if name == "aligned":
+                    assert torch.equal(got[0], want[0]) and \
+                        torch.equal(got[1], want[1]), (kname, dt)
+                    errs[(kname, dt)] = 0.0
+                else:
+                    assert torch.equal(got[1], want[1]), (kname, dt)
+                    errs[(kname, dt, "shifted")] = check(kname, got[0],
+                                                         want[0], dt)
+            if name != "aligned":
+                continue
+            assert torch.equal(mirror_plain(x, pools(dt))[0], want[0])
+            out = pools(dt)
+            fam, per = launchers(x, out, out)
+            times[dt] = dict(
+                family=timer(fam),
+                mirror=timer(lambda: [f() for f in per]),
+                family_plain=timer(lambda: family_plain(x, out)),
+                mirror_plain=timer(lambda: mirror_plain(x, out)),
+                family_bound=bound(2 * blk * item * (need_master + n_diff
+                                                     + M * nb) + map_b,
+                                   0, dt),
+                mirror_bound=bound(M * 2 * blk * item * 2 * nb + map_b, 0,
+                                   dt))
+            if dt == wt.master.k.dtype:
+                dense_out = pools(dt)
+                times[dt]["dense"] = timer(lambda: [
+                    dense_restore_paged(h, theta, maps[m], *dense_out)
+                    for m, h in enumerate(wt.handles)])
+        tm = times[dt]
+        say(f"[restore] {dt}: (a) family kernel {tm['family']:.4f} ms "
+            f"(bound {tm['family_bound'][0]:.4f}), (b) 7 per-mirror "
+            f"launches {tm['mirror']:.4f} ms (bound "
+            f"{tm['mirror_bound'][0]:.4f}), (c) dense torch path "
+            f"{tm.get('dense', float('nan')):.4f} ms; plain versions "
+            f"family {tm['family_plain']:.4f} / per mirror "
+            f"{tm['mirror_plain']:.4f} ms; shifted-frame max abs err "
+            f"family {errs[('fused_family_restore', dt, 'shifted')]:.3g} / "
+            f"per mirror {errs[('fused_diff_restore', dt, 'shifted')]:.3g}")
+    dt = wt.master.k.dtype
+    tm = times[dt]
+    shape = [M, L, nb, bt, KV, hd]
+    rows = []
+    for name, key in (("fused_diff_restore", "mirror"),
+                      ("fused_family_restore", "family")):
+        rows.append(dict(
+            name=name, shape=shape, max_abs_err=errs[(name, dt)],
+            max_abs_err_f32=errs[(name, torch.float32)],
+            ms=tm[key], plain_ms=tm[key + "_plain"],
+            bound_ms=tm[key + "_bound"][0], bound_by=tm[key + "_bound"][1],
+            library_ms=None, launches=launches[name]))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -448,6 +648,7 @@ def main() -> int:
     launches, kept = main_path(dev)
     table = kernels(dev, launches, kept)
     smoke_parity(dev)
+    table += table_rows(restore(dev))
     say(smi)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The paper's contribution in PyTorch: round-aware segments, collective KV
-cache reuse, diff-aware Master-Mirror storage and the page-sharing family
-restore."""
+cache reuse, diff-aware Master-Mirror storage and the restore paths
+(dense, fused per mirror, fused per family, page-sharing)."""
 from repro_torch.core.collector import (CollectiveResult, KVCollector,
                                         PagedPrivate, ReusePlan,
                                         group_compatible)
@@ -11,9 +11,11 @@ from repro_torch.core.diff_store import (BLOCK_TOKENS, MasterCache,
                                          trim_family)
 from repro_torch.core.pic import (PagedHistory, PICResult, align_cached_keys,
                                   n_sel_for_blocks, pic_prefill)
-from repro_torch.core.restore import (family_pool_pages,
+from repro_torch.core.restore import (dense_restore, dense_restore_batch,
+                                      dense_restore_paged, family_pool_pages,
+                                      fused_restore_family_paged,
                                       fused_restore_family_shared,
-                                      gather_pages)
+                                      fused_restore_paged, gather_pages)
 from repro_torch.core.rounds import (AgentState, AllGather, AllGatherTrace,
                                      GatherTopology, Round, SubsetGather,
                                      generate_trace, round_prompt)
@@ -30,8 +32,9 @@ __all__ = [
     "PagedPrivate", "PagedSegmentCacheEntry", "PromptLayout", "ReusePlan",
     "Round", "Segment", "SegmentCacheEntry", "SegmentIndex", "Span",
     "SubsetGather", "align_cached_keys", "build_prompt", "build_round_family",
-    "compression_stats", "family_pool_pages", "fused_restore_family_shared",
-    "gather_pages", "generate_trace", "group_compatible", "n_sel_for_blocks",
+    "compression_stats", "dense_restore", "dense_restore_batch",
+    "dense_restore_paged", "family_pool_pages", "fused_restore_family_paged",
+    "fused_restore_family_shared", "fused_restore_paged", "gather_pages", "generate_trace", "group_compatible", "n_sel_for_blocks",
     "pack_family", "pic_prefill", "round_prompt", "segment_hash",
     "trim_family",
 ]

@@ -1,18 +1,33 @@
-"""Page-sharing family restore (paper §4.4) in PyTorch.
+"""Mirror restore paths (paper §4.4, Algorithm 1) in PyTorch.
 
-:func:`fused_restore_family_shared` rebuilds a Master family into a page
-pool for aligned frames (the in-family case the serving engine hits every
-round): the Master's blocks are written once and each mirror's DIFF
-blocks to private pages, so per-family work is ``nb + M*ndb`` pages
-instead of ``M*nb``; a mirror's clean blocks alias the Master's pages
-through its page table. In aligned frames the write needs no rotation, so
-it is pure data movement (``index_copy_``), as the JAX engine's
+Three implementations with identical results, increasing in how much
+work they amortize:
+
+* :func:`dense_restore` / :func:`dense_restore_paged` — the naive
+  baseline: a dense copy of the Master, the diff blocks written over it,
+  RoPE recovery, then a separate scatter into the pool (torch ops).
+* :func:`fused_restore_paged` — per mirror: diff select, RoPE recovery
+  and the page write in ONE ``fused_diff_restore`` launch. A family of
+  M mirrors pays M launches and reads every Master block M times.
+* :func:`fused_restore_family_paged` — the whole family in ONE
+  ``fused_family_restore`` launch: each Master block is read once and
+  written for all M mirrors.
+
+:func:`fused_restore_family_shared` is the page-sharing mode for aligned
+frames (the in-family case the serving engine hits every round): the
+Master's blocks are written once and each mirror's DIFF blocks to
+private pages, so per-family work is ``nb + M*ndb`` pages instead of
+``M*nb``; a mirror's clean blocks alias the Master's pages through its
+page table. In aligned frames the write needs no rotation, so it is
+pure data movement (``index_copy_``), as the JAX engine's
 ``_shared_scatter`` is.
 
-Writes are in place, and only ever into a pool this module has just
-allocated (:func:`_shared_build`) and has not handed to any reader yet:
-once returned, a pool is only read (``PagedSegmentCacheEntry`` references
-it for the round), so no reader can see a later write.
+The paged paths write IN PLACE into the pools they are given (the
+caller owns them; the JAX paths return updated copies). The page-sharing
+mode writes only into a pool it has just allocated
+(:func:`_shared_build`) and has not handed to any reader yet: once
+returned, a pool is only read (``PagedSegmentCacheEntry`` references it
+for the round), so no reader can see a later write.
 """
 from __future__ import annotations
 
@@ -21,7 +36,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.diff_store import _pad_to_blocks, pack_family
+from repro_torch.core.diff_store import (MirrorHandle, _pad_to_blocks,
+                                         pack_family)
+from repro_torch.kernels import ops
+from repro_torch.models.layers import rope_shift
 
 
 def gather_pages(pool_k: torch.Tensor, pool_v: torch.Tensor, page_idx,
@@ -36,6 +54,125 @@ def gather_pages(pool_k: torch.Tensor, pool_v: torch.Tensor, page_idx,
     k = pool_k[:, pages].reshape(L, nbh * bt, KV, hd)[:, :seq_len]
     v = pool_v[:, pages].reshape(L, nbh * bt, KV, hd)[:, :seq_len]
     return k, v
+
+
+def _delta_pos(diff) -> Optional[torch.Tensor]:
+    """int32 ``new_pos - old_pos`` [S] on the diff's device, or None for
+    aligned frames (no rotation at all)."""
+    old = np.asarray(diff.old_pos)
+    new = np.asarray(diff.new_pos)
+    if np.array_equal(old, new):
+        return None
+    return torch.as_tensor((new - old).astype(np.int32),
+                           device=diff.k_vals.device)
+
+
+def _master_blocks(handle: MirrorHandle, bt: int):
+    """The Master's K/V as contiguous blocks ``[L, nb, bt, KV, hd]``
+    (the token axis zero-padded to a block multiple)."""
+    mk = _pad_to_blocks(handle.master.k, bt)
+    mv = _pad_to_blocks(handle.master.v, bt)
+    L, Sp, KV, hd = mk.shape
+    shape = (L, Sp // bt, bt, KV, hd)
+    return mk.reshape(shape).contiguous(), mv.reshape(shape).contiguous()
+
+
+def dense_restore(handle: MirrorHandle,
+                  theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Naive path: dense Master copy -> overwrite diff blocks -> RoPE.
+    Returns (k, v) ``[L, S, KV, hd]``, new tensors."""
+    diff = handle.diff
+    bt = diff.block_tokens
+    kb, vb = _master_blocks(handle, bt)
+    kb, vb = kb.clone(), vb.clone()   # the write-then-read Alg. 1 avoids
+    L, nb, _, KV, hd = kb.shape
+    idx = torch.as_tensor(diff.block_idx, dtype=torch.long, device=kb.device)
+    kb[:, idx] = diff.k_vals
+    vb[:, idx] = diff.v_vals
+    k = kb.reshape(L, nb * bt, KV, hd)[:, : diff.seq_len]
+    v = vb.reshape(L, nb * bt, KV, hd)[:, : diff.seq_len]
+    dp = _delta_pos(diff)
+    if dp is not None:
+        k = rope_shift(k, torch.zeros_like(dp), dp, theta)
+    return k, v
+
+
+def dense_restore_paged(handle: MirrorHandle, theta: float, slot_map,
+                        pool_k: torch.Tensor, pool_v: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`dense_restore` followed by a separate scatter into the
+    pools' pages ``slot_map`` ([nb] ints), in place — the two-step
+    baseline of Fig. 13."""
+    bt = handle.diff.block_tokens
+    k, v = dense_restore(handle, theta)
+    kp, vp = _pad_to_blocks(k, bt), _pad_to_blocks(v, bt)
+    L, Sp, KV, hd = kp.shape
+    pages = torch.as_tensor(np.asarray(slot_map), dtype=torch.long,
+                            device=pool_k.device)
+    pool_k[:, pages] = kp.reshape(L, Sp // bt, bt, KV, hd)
+    pool_v[:, pages] = vp.reshape(L, Sp // bt, bt, KV, hd)
+    return pool_k, pool_v
+
+
+def dense_restore_batch(handles, theta: float):
+    """Restore ALL of a round family's mirrors in one batched write:
+    ``(k, v)`` ``[M, L, S, KV, hd]``. Requires aligned frames (in-family
+    mirrors share positions)."""
+    assert handles, "empty family"
+    bt = handles[0].diff.block_tokens
+    kb, vb = _master_blocks(handles[0], bt)
+    L, nb, _, KV, hd = kb.shape
+    M = len(handles)
+    k_all = kb[None].repeat(M, 1, 1, 1, 1, 1)
+    v_all = vb[None].repeat(M, 1, 1, 1, 1, 1)
+    for m, h in enumerate(handles):
+        d = h.diff
+        assert np.array_equal(d.old_pos, d.new_pos), \
+            "batched restore requires aligned frames"
+        idx = torch.as_tensor(d.block_idx, dtype=torch.long, device=kb.device)
+        k_all[m][:, idx] = d.k_vals
+        v_all[m][:, idx] = d.v_vals
+    S = handles[0].diff.seq_len
+    return (k_all.reshape(M, L, nb * bt, KV, hd)[:, :, :S],
+            v_all.reshape(M, L, nb * bt, KV, hd)[:, :, :S])
+
+
+def fused_restore_paged(handle: MirrorHandle, theta: float, slot_map,
+                        pool_k: torch.Tensor, pool_v: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Algorithm 1 for one mirror: the block-sparse diff and the RoPE
+    recovery applied in the pass that writes the pool pages ``slot_map``
+    ([nb] ints) — ONE ``fused_diff_restore`` launch, in place. No dense
+    Mirror is ever built."""
+    diff = handle.diff
+    bt = diff.block_tokens
+    kb, vb = _master_blocks(handle, bt)
+    nb = kb.shape[1]
+    diff_slot = np.full((nb,), -1, np.int32)
+    diff_slot[np.asarray(diff.block_idx)] = np.arange(diff.n_blocks)
+    dp = np.zeros((nb * bt,), np.int32)
+    dp[: diff.seq_len] = (np.asarray(diff.new_pos, np.int64)
+                          - np.asarray(diff.old_pos, np.int64))
+    return ops.fused_diff_restore(
+        kb, vb, diff.k_vals.contiguous(), diff.v_vals.contiguous(),
+        diff_slot, np.asarray(slot_map), dp.reshape(nb, bt), theta, pool_k,
+        pool_v)
+
+
+def fused_restore_family_paged(handles, theta: float, slot_maps,
+                               pool_k: torch.Tensor, pool_v: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Family-batched Algorithm 1: EVERY mirror of one Master family in
+    ONE ``fused_family_restore`` launch, in place. ``handles`` share one
+    Master; ``slot_maps`` is int [M, nb] with disjoint pages. The same
+    pages as :func:`fused_restore_paged` once per handle, but each
+    Master block is read once instead of M times."""
+    assert handles, "empty family"
+    pack = pack_family(handles)
+    kb, vb = _master_blocks(handles[0], pack.block_tokens)
+    return ops.fused_family_restore(
+        kb, vb, pack.diff_k, pack.diff_v, pack.diff_slot,
+        np.asarray(slot_maps), pack.delta_pos, theta, pool_k, pool_v)
 
 
 def _shared_scatter(master_kb, master_vb, diff_k, diff_v, master_map,

@@ -20,13 +20,15 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("rope_align", "block_diff", "flash_prefill", "flash_decode_paged")
+SOURCES = ("rope_align", "block_diff", "flash_prefill", "flash_decode_paged",
+           "diff_restore")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: ptxas report (registers, shared memory, spills) of each build, by source
 BUILD_LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, object] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,7 +44,14 @@ SIGNATURES = {
     "flash_decode_paged": ("flash_decode_paged_launch",
                            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _F, _I, _P]),
+    "fused_diff_restore": ("fused_diff_restore_launch",
+                           [_P] * 10 + [_I] * 8 + [_P]),
+    "fused_family_restore": ("fused_family_restore_launch",
+                             [_P] * 10 + [_I] * 9 + [_P]),
 }
+#: the source each kernel's launch function is compiled from
+LIBRARY = {"fused_diff_restore": "diff_restore",
+           "fused_family_restore": "diff_restore"}
 
 
 def nvcc() -> str:
@@ -95,23 +104,26 @@ def build_all(names=SOURCES) -> Dict[str, str]:
     return dict(BUILD_LOGS)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, built first if needed."""
-    lib = _LIBS.get(name)
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of one source, built first if needed."""
+    lib = _LIBS.get(source)
     if lib is None:
-        out = _target(name)
+        out = _target(source)
         if not out.exists():
-            build_all((name,))
+            build_all((source,))
         lib = ctypes.CDLL(str(out))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+        _LIBS[source] = lib
     return lib
 
 
 def launcher(name: str):
     """The C launch function of one kernel, typed."""
-    return getattr(load(name), SIGNATURES[name][0])
+    fn = _FNS.get(name)
+    if fn is None:
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(load(LIBRARY.get(name, name)), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
 

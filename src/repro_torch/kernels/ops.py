@@ -1,4 +1,4 @@
-"""Dispatch for the port's four kernels.
+"""Dispatch for the port's kernels.
 
 A tensor on a CUDA device goes to the hand-written Hopper kernel
 (``csrc/*.cu``, built and loaded by :mod:`repro_torch.kernels.build`); a
@@ -7,23 +7,28 @@ tensor on the CPU goes to the plain PyTorch version in
 other: a CUDA call that the kernel does not take (device, dtype, shape,
 contiguity) raises, and so does a launch the CUDA runtime refuses.
 
-Every wrapper allocates its output with ``torch.empty``, launches on the
-current stream without synchronising, and adds one to
-``LAUNCHES[<kernel>]`` where — and only where — it launches the kernel,
-so a run can show that its path went through each kernel.
+Every wrapper allocates its output with ``torch.empty`` (the two restore
+wrappers write into the pools they are given, in place, as the TPU
+kernels alias theirs), launches on the current stream without
+synchronising, and adds one to ``LAUNCHES[<kernel>]`` where — and only
+where — it launches the kernel, so a run can show that its path went
+through each kernel.
 """
 from __future__ import annotations
 
 import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"rope_align": 0, "block_diff": 0,
-                            "flash_prefill": 0, "flash_decode_paged": 0}
+                            "flash_prefill": 0, "flash_decode_paged": 0,
+                            "fused_diff_restore": 0,
+                            "fused_family_restore": 0}
 #: calls each wrapper answered with its plain version (CPU tensors)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
@@ -205,3 +210,156 @@ def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
             tail_len if tail_k is not None else 0, 1.0 / math.sqrt(hd),
             _DTYPES[q.dtype], _stream(q))
     return out
+
+
+# --------------------------------------------------------------------------
+def _host_ints(name: str, a, shape) -> np.ndarray:
+    """An index map as host int32, of the given shape. Maps are checked
+    here, before any upload: a jitted JAX scatter drops an out-of-range
+    write, a CUDA kernel would write outside the pool."""
+    if torch.is_tensor(a):
+        a = a.cpu().numpy()
+    a = np.asarray(a)
+    if a.dtype.kind not in "iu" or a.shape != tuple(shape):
+        raise ValueError(f"{name} must be integer {tuple(shape)}, got "
+                         f"{a.dtype} {a.shape}")
+    return np.ascontiguousarray(a, dtype=np.int32)
+
+
+def _restore_maps(kernel: str, master_k, master_v, diff_k, diff_v,
+                  diff_slot, slot_map, delta_pos, pool_k, pool_v, M: int):
+    """Shape checks and the host-side map checks shared by the two
+    restore kernels, on the family layout (diffs ``[M, L, ndb, ...]``,
+    maps ``[M, nb]``). Returns the (possibly padded) diffs and the maps
+    as host int32."""
+    if master_k.dim() != 5 or master_v.shape != master_k.shape:
+        raise ValueError(f"master must be [L, nb, bt, KV, hd], got "
+                         f"{tuple(master_k.shape)} {tuple(master_v.shape)}")
+    L, nb, bt, KV, hd = master_k.shape
+    if diff_k.shape[2] == 0:  # keep the row select total: one zero row
+        zshape = diff_k.shape[:2] + (1,) + diff_k.shape[3:]
+        diff_k = master_k.new_zeros(zshape)
+        diff_v = master_v.new_zeros(zshape)
+    ndb = diff_k.shape[2]
+    P = pool_k.shape[1]
+    if (diff_k.shape != (M, L, ndb, bt, KV, hd) or diff_v.shape != diff_k.shape
+            or pool_k.dim() != 5 or pool_v.shape != pool_k.shape
+            or pool_k.shape[0] != L or pool_k.shape[2:] != master_k.shape[2:]):
+        raise ValueError(f"bad {kernel} shapes: master {tuple(master_k.shape)}"
+                         f" diff {tuple(diff_k.shape)} pool "
+                         f"{tuple(pool_k.shape)}")
+    slot = _host_ints("diff_slot", diff_slot, (M, nb))
+    pages = _host_ints("slot_map", slot_map, (M, nb))
+    delta = _host_ints("delta_pos", delta_pos, (M, nb, bt))
+    if ((slot < -1) | (slot >= ndb)).any():
+        raise ValueError(f"diff_slot out of range [-1, {ndb})")
+    if ((pages < 0) | (pages >= P)).any():
+        raise ValueError(f"slot_map addresses a page outside [0, {P})")
+    if np.unique(pages).size != pages.size:
+        raise ValueError("slot_map pages must be distinct (disjoint across "
+                         "mirrors)")
+    return diff_k, diff_v, slot, pages, delta
+
+
+def restore_launcher(kernel: str, master_k, master_v, diff_k, diff_v,
+                     diff_slot, slot_map, delta_pos, theta: float, pool_k,
+                     pool_v):
+    """One restore kernel's launch on CUDA tensors, checked and uploaded
+    once: returns a zero-argument function that launches the kernel
+    (counted in ``LAUNCHES``) and returns the pools. Arguments are in the
+    family layout for both kernels (``fused_diff_restore`` takes M = 1).
+    The wrappers below call it once; a measurement can time the launch
+    apart from the host-side checks."""
+    M = diff_k.shape[0]
+    if kernel == "fused_diff_restore" and M != 1:
+        raise ValueError("fused_diff_restore restores one mirror")
+    diff_k, diff_v, slot, pages, delta = _restore_maps(
+        kernel, master_k, master_v, diff_k, diff_v, diff_slot, slot_map,
+        delta_pos, pool_k, pool_v, M)
+    L, nb, bt, KV, hd = master_k.shape
+    for name, x in (("master_k", master_k), ("master_v", master_v),
+                    ("diff_k", diff_k), ("diff_v", diff_v),
+                    ("pool_k", pool_k), ("pool_v", pool_v)):
+        if x.device.type != "cuda" or x.device != master_k.device:
+            raise ValueError(f"{name} must lie on the master's CUDA device")
+        _check(name, x, dtype=None if name == "master_k" else master_k.dtype)
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    lanes = 16 // master_k.element_size()
+    if hd % 16 or bt * (hd // 2) // lanes > 1024:
+        raise ValueError(f"{kernel} takes hd % 16 == 0 and at most 1024 "
+                         f"(token, 16-byte chunk) pairs a head, got bt {bt} "
+                         f"hd {hd}")
+    dev = master_k.device
+    up = [torch.from_numpy(a).to(dev) for a in (slot, pages, delta)]
+    freqs = ref.rope_freqs(hd, theta, dev)
+    args = (master_k.data_ptr(), master_v.data_ptr(), diff_k.data_ptr(),
+            diff_v.data_ptr(), *(u.data_ptr() for u in up), freqs.data_ptr(),
+            pool_k.data_ptr(), pool_v.data_ptr(),
+            *((M,) if kernel == "fused_family_restore" else ()),
+            L, nb, diff_k.shape[2], bt, KV, hd, pool_k.shape[1],
+            _DTYPES[master_k.dtype], _stream(master_k))
+
+    def launch(_alive=(diff_k, diff_v, up, freqs)):  # buffers args point at
+        _launch(kernel, *args)
+        return pool_k, pool_v
+
+    return launch
+
+
+def _restore(kernel: str, master_k, master_v, diff_k, diff_v, diff_slot,
+             slot_map, delta_pos, theta: float, pool_k, pool_v):
+    """CPU tensors -> the plain version; CUDA tensors -> the kernel."""
+    if not _on_cpu(kernel, master_k, master_v, diff_k, diff_v, pool_k,
+                   pool_v):
+        return restore_launcher(kernel, master_k, master_v, diff_k, diff_v,
+                                diff_slot, slot_map, delta_pos, theta,
+                                pool_k, pool_v)()
+    diff_k, diff_v, slot, pages, delta = _restore_maps(
+        kernel, master_k, master_v, diff_k, diff_v, diff_slot, slot_map,
+        delta_pos, pool_k, pool_v, diff_k.shape[0])
+    slot, pages, delta = (torch.from_numpy(a) for a in (slot, pages, delta))
+    if kernel == "fused_diff_restore":
+        return ref.fused_diff_restore_ref(
+            master_k, master_v, diff_k[0], diff_v[0], slot[0], pages[0],
+            delta[0], theta, pool_k, pool_v)
+    return ref.fused_family_restore_ref(master_k, master_v, diff_k, diff_v,
+                                        slot, pages, delta, theta, pool_k,
+                                        pool_v)
+
+
+def fused_diff_restore(master_k, master_v, diff_k, diff_v, diff_slot,
+                       slot_map, delta_pos, theta: float, pool_k, pool_v):
+    """Algorithm 1 for one mirror: block-sparse diff select + RoPE
+    recovery + paged write, IN PLACE into the pools (returned).
+
+    master ``[L, nb, bt, KV, hd]``; diffs ``[L, ndb, bt, KV, hd]`` (ndb
+    may be 0); ``diff_slot``/``slot_map`` int ``[nb]`` and ``delta_pos``
+    int ``[nb, bt]`` as host arrays (numpy or tensors, checked on the
+    host: pages distinct and inside the pool); pools ``[L, P, bt, KV,
+    hd]``. ONE launch.
+    """
+    return _restore("fused_diff_restore", master_k, master_v, diff_k[None],
+                    diff_v[None], _lead(diff_slot), _lead(slot_map),
+                    _lead(delta_pos), theta, pool_k, pool_v)
+
+
+def fused_family_restore(master_k, master_v, diff_k, diff_v, diff_slot,
+                         slot_map, delta_pos, theta: float, pool_k, pool_v):
+    """Algorithm 1 for a whole Master family in ONE launch: each Master
+    block is read once and written for all M mirrors, IN PLACE into the
+    pools (returned).
+
+    master ``[L, nb, bt, KV, hd]``; diffs ``[M, L, ndb, bt, KV, hd]``;
+    ``diff_slot``/``slot_map`` int ``[M, nb]`` (pages disjoint across
+    mirrors) and ``delta_pos`` int ``[M, nb, bt]``, checked on the host
+    as for :func:`fused_diff_restore`; pools ``[L, P, bt, KV, hd]``.
+    """
+    return _restore("fused_family_restore", master_k, master_v, diff_k,
+                    diff_v, diff_slot, slot_map, delta_pos, theta, pool_k,
+                    pool_v)
+
+
+def _lead(a):
+    """One leading axis on an index map (array-like or tensor)."""
+    return a[None] if torch.is_tensor(a) else np.asarray(a)[None]

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four Hopper kernels' functions.
+"""Plain PyTorch versions of the Hopper kernels' functions.
 
 Each function here is the reference its kernel is held against on the
 card (``chip_smoke.py``, ``tests/test_torch_kernels.py``) and the path
@@ -53,6 +53,58 @@ def rope_align_ref(k: torch.Tensor, src_pos: torch.Tensor,
                    tgt_pos: torch.Tensor, theta: float) -> torch.Tensor:
     """Re-rotate keys ``[..., S, KV, hd]`` from ``src_pos`` to ``tgt_pos``."""
     return rope_delta_ref(k, tgt_pos - src_pos, theta)
+
+
+def fused_diff_restore_ref(master_k, master_v, diff_k, diff_v, diff_slot,
+                           slot_map, delta_pos, theta: float, pool_k,
+                           pool_v):
+    """Algorithm 1 for one mirror: block select + RoPE recovery + paged
+    write, IN PLACE into the pools (returned).
+
+    master ``[L, nb, bt, KV, hd]``; diffs ``[L, ndb, bt, KV, hd]``;
+    ``diff_slot`` int ``[nb]`` (row into the diffs, -1 = Master block);
+    ``slot_map`` int ``[nb]`` destination pages; ``delta_pos`` int
+    ``[nb, bt]``; pools ``[L, P, bt, KV, hd]``.
+    """
+    L, nb, bt, KV, hd = master_k.shape
+    have = (diff_slot >= 0)[None, :, None, None, None]
+    rows = diff_slot.clamp(min=0).long()
+    k = torch.where(have, diff_k[:, rows], master_k)
+    v = torch.where(have, diff_v[:, rows], master_v)
+    k = rope_delta_ref(k.reshape(L, nb * bt, KV, hd),
+                       delta_pos.reshape(nb * bt), theta)
+    pages = slot_map.long()
+    pool_k[:, pages] = k.reshape(L, nb, bt, KV, hd)
+    pool_v[:, pages] = v
+    return pool_k, pool_v
+
+
+def fused_family_restore_ref(master_k, master_v, diff_k, diff_v, diff_slot,
+                             slot_map, delta_pos, theta: float, pool_k,
+                             pool_v):
+    """Algorithm 1 for a whole family (ONE Master, M mirrors), IN PLACE
+    into the pools (returned).
+
+    master ``[L, nb, bt, KV, hd]``; diffs ``[M, L, ndb, bt, KV, hd]``;
+    ``diff_slot``/``slot_map`` int ``[M, nb]`` (maps disjoint across
+    mirrors); ``delta_pos`` int ``[M, nb, bt]``; pools ``[L, P, bt, KV,
+    hd]``.
+    """
+    L, nb, bt, KV, hd = master_k.shape
+    M = diff_slot.shape[0]
+    have = (diff_slot >= 0)[:, None, :, None, None, None]
+    rows = diff_slot.clamp(min=0).long()
+    dk = torch.stack([diff_k[m][:, rows[m]] for m in range(M)])
+    dv = torch.stack([diff_v[m][:, rows[m]] for m in range(M)])
+    k = torch.where(have, dk, master_k[None])              # [M, L, nb, ...]
+    v = torch.where(have, dv, master_v[None])
+    k = rope_delta_ref(k.reshape(M, L, nb * bt, KV, hd),
+                       delta_pos.reshape(M, nb * bt), theta)
+    pages = slot_map.reshape(M * nb).long()
+    pool_k[:, pages] = k.reshape(M, L, nb, bt, KV, hd).transpose(0, 1) \
+        .reshape(L, M * nb, bt, KV, hd)
+    pool_v[:, pages] = v.transpose(0, 1).reshape(L, M * nb, bt, KV, hd)
+    return pool_k, pool_v
 
 
 def block_diff_ref(ks: torch.Tensor, vs: torch.Tensor, master: int,

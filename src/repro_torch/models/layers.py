@@ -38,6 +38,15 @@ def check_supported(cfg) -> None:
 
 
 # --------------------------------------------------------------------------
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the dtype jnp's promotion gives the JAX package's
+    einsum: a bf16 weight meets f32 activations in collective recovery
+    (the cached KV is f32), and is cast at use, never stored twice. No
+    copy when the dtypes agree."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
@@ -92,7 +101,7 @@ def project_qkv(x: torch.Tensor, p: dict, cfg):
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
 
     def proj(w, b, nh):
-        y = (x @ p[w]).view(B, S, nh, hd)
+        y = matmul(x, p[w]).view(B, S, nh, hd)
         return y + p[b].view(nh, hd) if b in p else y
 
     return proj("wq", "bq", H), proj("wk", "bk", KV), proj("wv", "bv", KV)
@@ -101,8 +110,9 @@ def project_qkv(x: torch.Tensor, p: dict, cfg):
 def out_proj(o: torch.Tensor, p: dict) -> torch.Tensor:
     """``[B, S, H, hd]`` attention output -> ``[B, S, D]``."""
     B, S = o.shape[:2]
-    return o.reshape(B, S, -1) @ p["wo"]
+    return matmul(o.reshape(B, S, -1), p["wo"])
 
 
 def swiglu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    return matmul(F.silu(matmul(x, p["w_gate"])) * matmul(x, p["w_up"]),
+                  p["w_down"])

@@ -184,7 +184,9 @@ def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
     ``cache``: ``pk``/``pv`` ``[L, P, bt, KV, hd]``, ``page_idx`` int32
     ``[B, nbt]`` (sequence b's pages in order) and ``length`` int32 ``[B]``
     (tokens already cached; they are valid from position 0 — the serving
-    engine's layout). The new token's K/V is written into page
+    engine's layout). Pools may be wider than the model dtype (f32 KV
+    recovered for a bf16 model): the new K/V is stored in the pool's
+    dtype and the residual stream promotes from the first attention on. The new token's K/V is written into page
     ``page_idx[b, length // bt]`` at slot ``length % bt``, IN PLACE in the
     pools (the decode state owns them); attention then reads the first
     ``length + 1`` tokens of each sequence's pages through the paged
@@ -209,10 +211,13 @@ def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
         q, k, v = project_qkv(x, p["attn"], cfg)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        pk[l][pages, slots] = k[:, 0]
-        pv[l][pages, slots] = v[:, 0]
-        o = ops.flash_decode_paged(q[:, 0].contiguous(), pk[l], pv[l],
-                                   page_idx, span)
+        pk[l][pages, slots] = k[:, 0].to(pk.dtype)
+        pv[l][pages, slots] = v[:, 0].to(pv.dtype)
+        # attention runs in the pool's dtype where the query's is narrower
+        # (a bf16 model over recovered f32 KV), as jnp promotion does
+        o = ops.flash_decode_paged(
+            q[:, 0].to(torch.promote_types(q.dtype, pk.dtype)).contiguous(),
+            pk[l], pv[l], page_idx, span)
         h = h + out_proj(o[:, None], p["attn"])
         h = h + swiglu_mlp(rmsnorm(h, p["ln2"], cfg.rmsnorm_eps), p["mlp"])
     logits = logits_of(params, cfg, h)[:, 0]

@@ -18,7 +18,6 @@ from repro_torch.core.collector import PagedPrivate
 from repro_torch.core.pic import n_sel_for_blocks
 from repro_torch.core.segments import (SHARED, PagedSegmentCacheEntry,
                                        SegmentCacheEntry, segment_hash)
-from repro_torch.models.transformer import dtype_of
 from repro_torch.serving.policies.base import (RecoveryPlan, RecoveryResult,
                                                ReusePolicy, RoundContext,
                                                sync)
@@ -52,16 +51,17 @@ class PICPolicy(ReusePolicy):
     def _assemble_cached(self, ctx: RoundContext):
         """Build the shared cached tensors + per-agent history caches.
 
-        The shared KV is assembled in the model's dtype (the JAX engine
-        assembles it in f32 whatever the model dtype, which makes a bf16
-        model's recovery run in f32; the two agree for an f32 model)."""
+        The shared KV is assembled in f32 whatever the model dtype, as
+        the JAX engine assembles it: a bf16 model's recovery then runs in
+        f32 (``layers.matmul`` promotes), and so do the caches it
+        produces."""
         rt = self.rt
         cfg = rt.cfg
         dev = rt.device
         layouts, aids = ctx.layouts, ctx.agent_ids
         L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
         S = layouts[0].length
-        shared_k = torch.zeros((L, S, KV, hd), dtype=dtype_of(cfg),
+        shared_k = torch.zeros((L, S, KV, hd), dtype=torch.float32,
                                device=dev)
         shared_v = torch.zeros_like(shared_k)
         src = np.arange(S, dtype=np.int32)
@@ -108,13 +108,14 @@ class PICPolicy(ReusePolicy):
                 priv, on_dev(priv_mask), is_cached)
 
     def _dense_priv(self, entries, hspan, S: int, priv_mask) -> tuple:
-        """Dense private caches: the collector's ``(pk [N,L,S,KV,hd], pv,
-        psrc [N,S], pmask [S])`` tuple."""
+        """Dense private caches in f32 (as the shared KV): the
+        collector's ``(pk [N,L,S,KV,hd], pv, psrc [N,S], pmask [S])``
+        tuple."""
         cfg = self.rt.cfg
         dev = self.rt.device
         L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
         N = len(entries)
-        pk = torch.zeros((N, L, S, KV, hd), dtype=dtype_of(cfg), device=dev)
+        pk = torch.zeros((N, L, S, KV, hd), dtype=torch.float32, device=dev)
         pv = torch.zeros_like(pk)
         srcs = np.tile(np.arange(S, dtype=np.int32), (N, 1))
         for i, e in enumerate(entries):

@@ -1,7 +1,8 @@
-"""The port's four kernels: their plain PyTorch versions against the JAX
+"""The port's kernels: their plain PyTorch versions against the JAX
 package's references and Pallas kernels (interpret mode) on the CPU, and —
 on a card — each CUDA kernel against its plain version
-(``pytest -m gpu tests/test_torch_kernels.py``)."""
+(``pytest -m gpu tests/test_torch_kernels.py``). The restore kernels'
+plain versions are held against JAX in ``tests/test_torch_restore.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -285,3 +286,99 @@ def test_gpu_flash_decode_paged(cuda, dtype, H, KV, hd):
     _close(ops.flash_decode_paged(q, pk, pv, pidx, span, tk, tv, 40),
            ref.flash_decode_paged_ref(q, pk, pv, pidx, span, tk, tv, 40),
            dtype)
+
+
+RESTORE_CASES = {          # mirror diff counts, padded diff rows, shifted
+    "single_mirror": ([4], 0, False),
+    "zero_diffs": ([0, 0, 0], 0, False),
+    "all_diffs": ([9, 9], 0, False),
+    "ragged_counts": ([0, 3, 9, 1], 0, False),
+    "padded_ndb": ([2, 1], 3, False),
+    "shifted": ([0, 3, 9, 1], 0, True),
+}
+
+
+def _restore_inputs(cuda, dtype, counts, pad, shifted, L, nb, bt, KV, hd):
+    g = torch.Generator(device=cuda).manual_seed(sum(counts) + pad + hd)
+    M = len(counts)
+    ndb = max(counts) + pad
+    mk = torch.randn(L, nb, bt, KV, hd, generator=g, device=cuda).to(dtype)
+    mv = torch.randn(L, nb, bt, KV, hd, generator=g, device=cuda).to(dtype)
+    dk = torch.randn(M, L, ndb, bt, KV, hd, generator=g,
+                     device=cuda).to(dtype)
+    dv = torch.randn(M, L, ndb, bt, KV, hd, generator=g,
+                     device=cuda).to(dtype)
+    r = np.random.default_rng(len(counts))
+    slot = np.full((M, nb), -1, np.int32)
+    for m, n in enumerate(counts):
+        slot[m, r.choice(nb, n, replace=False)] = np.arange(n)
+    P = M * nb + 5
+    pages = r.permutation(P)[: M * nb].reshape(M, nb).astype(np.int32)
+    delta = (r.integers(-700, 700, (M, nb, bt)) if shifted
+             else np.zeros((M, nb, bt))).astype(np.int32)
+    return mk, mv, dk, dv, slot, pages, delta, P
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_DTYPES)
+@pytest.mark.parametrize("case", sorted(RESTORE_CASES))
+@pytest.mark.parametrize("L,nb,bt,KV,hd", [(3, 9, 32, 4, 128),
+                                           (2, 9, 16, 2, 64)])
+def test_gpu_restore_kernels(cuda, dtype, case, L, nb, bt, KV, hd):
+    """Both restore kernels against their plain versions, each into a
+    fresh pool: bit for bit in aligned frames (pure data movement), the
+    bf16/f32 tolerance in shifted ones; pages no map names stay zero."""
+    counts, pad, shifted = RESTORE_CASES[case]
+    mk, mv, dk, dv, slot, pages, delta, P = _restore_inputs(
+        cuda, dtype, counts, pad, shifted, L, nb, bt, KV, hd)
+
+    def pools():
+        pk = torch.zeros(L, P, bt, KV, hd, device=cuda, dtype=dtype)
+        return pk, torch.zeros_like(pk)
+
+    args = (mk, mv, dk, dv, slot, pages, delta, 1e6)
+    dkp, dvp = dk, dv       # the plain version takes the wrapper's padding
+    if not dk.shape[2]:
+        dkp = dvp = dk.new_zeros(dk.shape[:2] + (1,) + dk.shape[3:])
+    want = ref.fused_family_restore_ref(
+        mk, mv, dkp, dvp, torch.as_tensor(slot, device=cuda),
+        torch.as_tensor(pages, device=cuda),
+        torch.as_tensor(delta, device=cuda), 1e6, *pools())
+    ops.reset_launches()
+    fam = ops.fused_family_restore(*args, *pools())
+    per = pools()
+    for m in range(len(counts)):
+        per = ops.fused_diff_restore(mk, mv, dk[m], dv[m], slot[m], pages[m],
+                                     delta[m], 1e6, *per)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_family_restore"] == 1
+    assert ops.LAUNCHES["fused_diff_restore"] == len(counts)
+    for got in (fam, per):
+        assert torch.equal(got[1], want[1])
+        if shifted:
+            _close(got[0], want[0], dtype)
+        else:
+            assert torch.equal(got[0], want[0])
+    assert torch.equal(fam[0], per[0])
+    unused = np.setdiff1d(np.arange(P), pages)
+    assert not fam[0][:, unused].any() and not fam[1][:, unused].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["out_of_range", "overlap"])
+def test_gpu_restore_rejects_bad_slot_map(cuda, bad):
+    mk, mv, dk, dv, slot, pages, delta, P = _restore_inputs(
+        cuda, torch.bfloat16, [2, 1], 0, False, 2, 9, 32, 4, 128)
+    if bad == "out_of_range":
+        pages[1, 4] = P
+    else:
+        pages[1, 4] = pages[0, 7]
+    pk = torch.zeros(2, P, 32, 4, 128, device=cuda, dtype=torch.bfloat16)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="slot_map"):
+        ops.fused_family_restore(mk, mv, dk, dv, slot, pages, delta, 1e6, pk,
+                                 torch.zeros_like(pk))
+    with pytest.raises(ValueError, match="slot_map"):
+        ops.fused_diff_restore(mk, mv, dk[1], dv[1], slot[1], pages[1] + P,
+                               delta[1], 1e6, pk, torch.zeros_like(pk))
+    assert not any(ops.LAUNCHES.values()) and not pk.any()

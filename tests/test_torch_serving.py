@@ -1,13 +1,15 @@
 """The slice end to end: the port's ``ServingEngine`` with
 ``TokenDancePolicy(incremental=False)`` against the JAX engine with the
 same policy, on the same weights and trace (smoke qwen2.5-7b in f32, 3
-agents, 3 rounds, seed 11, gen 32, recompute_ratio 0.1)."""
+agents, 3 rounds, seed 11, gen 32, recompute_ratio 0.1), and the same
+run in bf16."""
 import os
 import subprocess
 import sys
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -15,10 +17,12 @@ import torch
 from repro.configs import get_smoke_config
 from repro.core.rounds import generate_trace
 from repro.models import init_params as jax_init
+from repro.models import transformer as jax_tf
 from repro.serving import ServingEngine, TokenDancePolicy
 from repro_torch.configs import get_smoke_config as torch_smoke
 from repro_torch.core.rounds import generate_trace as torch_trace
 from repro_torch.models import from_jax, init_params
+from repro_torch.models.transformer import decode_step_paged
 from repro_torch.serving import ServingEngine as TorchEngine
 from repro_torch.serving import TokenDancePolicy as TorchTokenDance
 
@@ -82,6 +86,166 @@ def test_reuse_and_pool_ledgers_equal(served):
     assert restore["pool_pages"] <= restore["full_write_pages"]
     assert ts[-1].reuse["pool"]["restore_cache_bytes"] == 0
     assert teng.collector.align_passes == jeng.collector.align_passes
+
+
+# ------------------------------------------------------------------ bf16
+# The JAX engine assembles the cached KV in f32 whatever the model dtype,
+# so a bf16 model's recovery — and the KV it stores — is f32 there by
+# jnp promotion; the port follows. Logits agree within two bf16 ulps at
+# their magnitude (|logit| < 2): round 0 prefills and decodes in bf16 in
+# both packages, which round the same f32 sums at other points.
+BF16_TOL = 2.0 ** -6
+
+
+def _jax_decode_step_paged_unscanned(params, cfg, token, cache):
+    """``repro.models.decode_step_paged`` with its layer loop written out
+    in Python. The JAX step carries the residual stream through
+    ``lax.scan``, which refuses a carry whose dtype changes: over the f32
+    KV recovery stores, a bf16 model's stream promotes to f32 at the
+    first attention, so the JAX engine raises TypeError from round 1 on.
+    The per-layer function is the JAX package's own."""
+    B = token.shape[0]
+    h = jnp.take(params["embed"], token[:, None], axis=0).astype(
+        jax_tf._dtype(cfg)).reshape(B, 1, -1)
+    length = cache["length"]
+    positions = length[:, None]
+    cos, sin = jax_tf.rope_cos_sin(positions, cfg.resolved_head_dim,
+                                   cfg.rope_theta)
+    page_idx = cache["page_idx"]
+    kv_pos = jax.vmap(lambda p_, i: jax.lax.dynamic_update_slice(
+        p_, i[None], (i,)))(cache["kv_pos"], length)
+    kv_valid = jax.vmap(lambda v_, i: jax.lax.dynamic_update_slice(
+        v_, jnp.ones((1,), bool), (i,)))(cache["kv_valid"], length)
+    windows = jax_tf._windows(cfg, page_idx.shape[1] * cache["pk"].shape[2],
+                              False)
+    pks, pvs = [], []
+    for l in range(cfg.n_layers):
+        lc = {"pk": cache["pk"][l], "pv": cache["pv"][l], "length": length,
+              "kv_pos": kv_pos, "kv_valid": kv_valid, "page_idx": page_idx}
+        h, out = jax_tf._block_decode_paged(
+            h, jax.tree.map(lambda a: a[l], params["blocks"]), cfg,
+            window=windows[l], positions=positions, cos=cos, sin=sin,
+            shard=jax_tf._noshard, layer_cache=lc)
+        pks.append(out["pk"])
+        pvs.append(out["pv"])
+    new_cache = dict(cache, pk=jnp.stack(pks), pv=jnp.stack(pvs),
+                     kv_pos=kv_pos, kv_valid=kv_valid, length=length + 1)
+    return jax_tf._logits(params, cfg, h, jax_tf._noshard)[:, 0], new_cache
+
+
+@pytest.fixture(scope="module")
+def served_bf16():
+    """Both engines in bf16. The port is teacher-forced with the JAX
+    tokens, so every round's prompts stay identical even where a near
+    tie flips a greedy choice; each of the port's own greedy choices is
+    recorded with its logits."""
+    import repro.serving.engine as jax_engine
+
+    cfg = get_smoke_config("qwen2.5-7b")
+    assert cfg.dtype == "bfloat16"
+    params = jax_init(jax.random.PRNGKey(0), cfg)
+    kw = dict(gen_len=GEN, recompute_ratio=0.1, keep_logits=True)
+    trace = dict(seed=11, jitter_hist=False)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_engine, "decode_step_paged",
+                   _jax_decode_step_paged_unscanned)
+        jeng = ServingEngine(params, cfg, TokenDancePolicy(incremental=False),
+                             **kw)
+        js = jeng.serve(generate_trace("generative_agents", N_AGENTS,
+                                       N_ROUNDS, cfg.vocab_size, **trace))
+    tcfg = torch_smoke("qwen2.5-7b")
+    tparams = from_jax(jax.tree.map(np.asarray, params), tcfg, device="cpu")
+    teng = TorchEngine(tparams, tcfg, TorchTokenDance(), **kw)
+    choices = []        # (round, step, own greedy tokens [N], logits [N, V])
+    begin = teng._decode_begin
+
+    def forced_begin(first_logits, cache, N, S, gaids):
+        st = begin(first_logits, cache, N, S, gaids)
+        r = teng.round_idx
+        want = torch.as_tensor(js[r].outputs, dtype=torch.int32)
+        choices.append((r, 0, st.tok, first_logits.float()))
+        st.tok = want[:, 0].clone()
+        st.outs = [st.tok]
+
+        def step(tok, cache, _st=st):
+            logits, cache = decode_step_paged(tparams, tcfg, tok, cache)
+            t = _st.t + 1
+            choices.append((r, t, logits.argmax(-1).to(torch.int32),
+                            logits.float()))
+            return want[:, t].clone(), cache
+
+        st.step = step
+        return st
+
+    teng._decode_begin = forced_begin
+    ts = teng.serve(torch_trace("generative_agents", N_AGENTS, N_ROUNDS,
+                                tcfg.vocab_size, **trace))
+    return jeng, js, teng, ts, choices
+
+
+def test_bf16_stored_kv_dtype_equals_jax(served_bf16):
+    """The recovered KV (the Masters built from it) is f32 in both, and
+    the output segments have the same dtypes (round 0's are bf16)."""
+    jeng, _, teng, _, _ = served_bf16
+    jm = [str(m.k.dtype) for m in jeng.policy.masters.values()]
+    tm = [str(m.k.dtype).removeprefix("torch.")
+          for m in teng.policy.masters.values()]
+    assert tm == jm == ["float32"], (tm, jm)
+
+    def seg_dtypes(eng, strip):
+        return sorted(str(e.k.dtype).removeprefix(strip)
+                      for e in eng.segment_index._entries.values())
+
+    assert seg_dtypes(teng, "torch.") == seg_dtypes(jeng, "")
+
+
+def test_bf16_first_token_logits_close(served_bf16):
+    _, js, _, ts, _ = served_bf16
+    for r in range(N_ROUNDS):
+        np.testing.assert_allclose(ts[r].first_logits, js[r].first_logits,
+                                   atol=BF16_TOL, rtol=0,
+                                   err_msg=f"round {r}")
+
+
+def test_bf16_greedy_tokens_equal_outside_near_ties(served_bf16):
+    """The first token equals JAX's wherever JAX's top-2 gap exceeds
+    2 * BF16_TOL. At every step the port's own greedy choice equals the
+    JAX token, or the flip is a near tie: the port scores its choice at
+    most 2 * BF16_TOL above the JAX token (logits within BF16_TOL of
+    each other cannot order two tokens further apart)."""
+    _, js, _, ts, choices = served_bf16
+    for r in range(N_ROUNDS):
+        top2 = np.sort(js[r].first_logits, axis=1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > 2 * BF16_TOL
+        own = ts[r].first_logits.argmax(axis=1)
+        want = js[r].first_logits.argmax(axis=1)
+        assert (own[clear] == want[clear]).all(), (r, own, want)
+    assert len(choices) == N_ROUNDS * GEN
+    for r, t, own, logits in choices:
+        want = js[r].outputs[:, t]
+        for a in range(N_AGENTS):
+            if own[a] == want[a]:
+                continue
+            gap = float(logits[a, own[a]] - logits[a, int(want[a])])
+            assert gap <= 2 * BF16_TOL, (
+                f"round {r}, agent {a}, step {t}: port picks {int(own[a])},"
+                f" JAX {int(want[a])}, port logit gap {gap} is no near tie")
+
+
+def test_bf16_jax_engine_decode_scan_refuses_promoted_stream():
+    """Why the fixture above unrolls the JAX decode step: served as it
+    is, the JAX engine stops at round 1's first decode step for a bf16
+    model (the recovered KV is f32, the scan's carry is bf16)."""
+    cfg = get_smoke_config("qwen2.5-7b")
+    eng = ServingEngine(jax_init(jax.random.PRNGKey(0), cfg), cfg,
+                        TokenDancePolicy(incremental=False), gen_len=GEN,
+                        recompute_ratio=0.1)
+    trace = generate_trace("generative_agents", N_AGENTS, 2, cfg.vocab_size,
+                           seed=11, jitter_hist=False)
+    eng.init_agents(trace)
+    eng.run_round(trace.rounds[0])
+    with pytest.raises(TypeError, match="carry"):
+        eng.run_round(trace.rounds[1])
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
