@@ -4,21 +4,39 @@
 
 Phases (each prints its lines; any failure exits non-zero):
   1. the card (``nvidia-smi`` name and power limit, torch's device name);
-  2. the build of the four CUDA kernels from ``src/repro_torch/kernels/csrc``
-     (one ``nvcc`` per source, all at once), with ptxas' registers, shared
-     memory and spills;
+  2. the build of the seven CUDA kernels from the six sources of
+     ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at
+     once), with ptxas' registers, shared memory and spills;
   3. the main path: Qwen2.5-7B at full width (28 layers, bf16, random
      weights from seed 0) served by ``ServingEngine`` +
      ``TokenDancePolicy(incremental=False)`` on the 8-agent, 3-round
      ``agent_society`` trace. Kernel launch counts are zeroed just before
      and read just after; every kernel must have launched and no plain
-     version may have run. Inputs of each kernel's largest call are kept;
+     version may have run. Inputs of each kernel's largest call are kept.
+     Then [dense]: the same weights and trace with ``paged_decode=False``
+     (the dense decode loop, counts zeroed before and read after):
+     ``flash_decode`` launched, ``flash_decode_paged`` did not, and the
+     outputs and first-token logits are bit-equal to the paged run;
   4. each kernel against its plain PyTorch version on those main-path
      inputs (bf16, and cast to f32) and on edge cases, with CUDA-event
      times of kernel, plain version and one PyTorch library call;
-  5. the f32 smoke configuration served on the card against the same
+  5. [hybrid] Hymba-1.5B at full width (32 layers, bf16, random weights
+     from seed 0) served by ``ServingEngine(params, cfg, "tokendance")``
+     on the same trace: the engine falls back to the recompute policy and
+     the dense decode loop; counts zeroed before and read after,
+     ``flash_prefill`` and ``flash_decode`` launched, ``flash_decode_paged``
+     and every plain version did not. Then the ``flash_prefill`` kernel
+     against its plain version at the hybrid heads (25 over 5, head dim
+     64) on the path's largest prefill and at S 1536 with a binding
+     window of 1024, in bf16 and f32; and the ``flash_decode`` kernel
+     against its plain version on the hybrid path's inputs (bf16) and on
+     the dense Qwen path's (f32), at Sk 1536 with a binding window of 1024
+     and ragged lengths, and bit-equal to the paged kernel on identical
+     KV; CUDA-event times of kernel, plain version and SDPA with a mask;
+  6. the f32 smoke configurations (Qwen2.5-7B with TokenDance, Hymba-1.5B
+     with its recompute fallback) served on the card against the same
      engine on the CPU: greedy tokens equal, logits within atol 1e-3;
-  6. [restore] the storage walkthrough
+  7. [restore] the storage walkthrough
      (``repro_torch.examples.compression_demo.walkthrough``) at Qwen2.5-7B
      full width (28 layers, bf16 weights, random from seed 0): 8 agents,
      private prefix 32, one 128-token shared block each (S 1056, nb 33),
@@ -56,6 +74,7 @@ REPLACES = {
     "block_diff": "src/repro/kernels/block_diff.py:43",
     "flash_prefill": "src/repro/kernels/flash_prefill.py:130",
     "flash_decode_paged": "src/repro/kernels/flash_decode.py:231",
+    "flash_decode": "src/repro/kernels/flash_decode.py:101",
     "fused_diff_restore": "src/repro/kernels/diff_restore.py:116",
     "fused_family_restore": "src/repro/kernels/diff_restore.py:190",
 }
@@ -165,7 +184,7 @@ class Recorder:
 
     def __enter__(self):
         for name in ("rope_align", "block_diff", "flash_attention",
-                     "flash_decode_paged"):
+                     "flash_decode_paged", "flash_decode"):
             fn = getattr(self.ops, name)
             self.orig[name] = fn
 
@@ -177,6 +196,8 @@ class Recorder:
                         key = "flash_attention_selected"
                 elif _name == "flash_decode_paged":
                     size = args[3].numel()        # pages in the table
+                elif _name == "flash_decode":
+                    size = args[1].numel()        # the dense cache
                 self._keep(key, size, args, kwargs)
                 return _fn(*args, **kwargs)
 
@@ -247,9 +268,38 @@ def main_path(dev):
                            "flash_decode_paged") if launches[k] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     assert not any(plain.values()), f"plain versions ran: {plain}"
+    del engine
+    kept = rec.kept
+
+    # [dense]: the same weights and trace through the dense decode loop
+    engine = ServingEngine(params, cfg, TokenDancePolicy(incremental=False),
+                           paged_decode=False, keep_logits=True)
+    with Recorder(ops) as rec:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        dense = engine.serve(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dlaunches = dict(ops.LAUNCHES)
+        plain = dict(ops.PLAIN_CALLS)
+    for st, ds in zip(stats, dense):
+        say(f"[dense] round {ds.round_idx}: round {ds.t_round * 1e3:.1f} ms "
+            f"(recover {ds.t_recover * 1e3:.1f}, decode "
+            f"{ds.t_decode * 1e3:.1f}, store {ds.t_store * 1e3:.1f})")
+        assert np.array_equal(ds.outputs, st.outputs), ds.round_idx
+        assert np.array_equal(ds.first_logits, st.first_logits), ds.round_idx
+        assert ds.persistent_bytes == st.persistent_bytes, ds.round_idx
+    say(f"[dense] serve {wall:.2f} s; outputs, first-token logits and "
+        f"persistent bytes bit-equal to the paged run in all "
+        f"{len(dense)} rounds")
+    say(f"[dense] launches {dlaunches}  plain-version calls {plain}")
+    assert dlaunches["flash_decode"] > 0 and \
+        dlaunches["flash_decode_paged"] == 0, dlaunches
+    assert not any(plain.values()), f"plain versions ran: {plain}"
+    kept["flash_decode_dense"] = rec.kept["flash_decode"]
     del engine, params
     torch.cuda.empty_cache()
-    return launches, rec.kept
+    return launches, kept
 
 
 # ------------------------------------------------------------- phase 4
@@ -427,44 +477,257 @@ def table_rows(rows):
 
 
 # ------------------------------------------------------------- phase 5
+def hybrid(dev):
+    """Hymba-1.5B at full width through the engine's normal entry point;
+    returns the launch counts and the kernels' inputs kept."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.rounds import generate_trace
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config("hymba-1.5b")
+    say(f"[hybrid] {cfg.name}: {cfg.n_layers} of {cfg.n_layers} layers (no "
+        f"depth cut), d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}"
+        f", head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, SSM state {cfg.ssm_state} x {cfg.ssm_heads} "
+        f"heads of {cfg.ssm_headdim}, window {cfg.sliding_window}, "
+        f"{cfg.dtype}, ~{cfg.param_count() / 1e9:.2f} B params")
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    say(f"[hybrid] init_params(seed 0) {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    trace = generate_trace("agent_society", 8, 3, cfg.vocab_size, seed=0,
+                           jitter_hist=False)
+    engine = ServingEngine(params, cfg, "tokendance", keep_logits=True)
+    assert engine.policy.name == "recompute", engine.policy.name
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder(ops) as rec:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        stats = engine.serve(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        plain = dict(ops.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for st in stats:
+        say(f"[hybrid] round {st.round_idx}: prompt {st.prompt_len}, "
+            f"round {st.t_round * 1e3:.1f} ms (recover "
+            f"{st.t_recover * 1e3:.1f}, decode {st.t_decode * 1e3:.1f}, "
+            f"store {st.t_store * 1e3:.1f}), policy {st.mode}")
+        assert st.outputs.shape == (8, engine.gen_len), st.outputs.shape
+        assert ((st.outputs >= 0) & (st.outputs < cfg.vocab_size)).all()
+        assert np.isfinite(st.first_logits).all(), st.round_idx
+        assert st.first_logits.shape == (8, cfg.vocab_size)
+    say(f"[hybrid] serve {wall:.2f} s for {len(stats)} rounds, peak device "
+        f"memory {peak:.2f} GiB")
+    say(f"[hybrid] launches {launches}  plain-version calls {plain}")
+    steps = len(stats) * (engine.gen_len - 1)
+    assert launches["flash_decode"] == steps * cfg.n_layers, launches
+    assert launches["flash_prefill"] > 0, launches
+    assert launches["flash_decode_paged"] == 0, launches
+    assert not any(plain.values()), f"plain versions ran: {plain}"
+    del engine, params
+    torch.cuda.empty_cache()
+    return launches, rec.kept
+
+
+def hybrid_prefill(dev, kept):
+    """The flash_prefill kernel against its plain version at the hybrid
+    path's shapes (25 query heads over 5 KV heads, G = 5; head dim 64):
+    its largest recompute prefill call, and a prefill of 1536 tokens at
+    those heads whose window of 1024 binds, with a ragged kv_len."""
+    from repro_torch.kernels import ops, ref
+
+    timer = Timer(dev)
+    _, (q, k, v), kw = kept["flash_attention"]
+    q_pos, window, kv_len = kw["q_pos"], kw["window"], kw.get("kv_len")
+    errs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
+        errs[dt] = check(
+            "flash_prefill",
+            ops.flash_attention(qq, kk, vv, q_pos=q_pos, window=window,
+                                kv_len=kv_len),
+            ref.flash_attention_ref(qq, kk, vv, q_pos=q_pos, window=window,
+                                    kv_len=kv_len), dt)
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    g = torch.Generator(device=dev).manual_seed(1)
+    Se = 1536
+    qe, ke, ve = (torch.randn(2, Se, n, hd, generator=g, device=dev)
+                  for n in (H, KV, KV))
+    pe = torch.arange(Se, device=dev, dtype=torch.int32).expand(2, Se)
+    pe = pe.contiguous()
+    kl = torch.tensor([Se, Se - 45], device=dev, dtype=torch.int32)
+    for dt in (torch.bfloat16, torch.float32):
+        qq, kk, vv = qe.to(dt), ke.to(dt), ve.to(dt)
+        errs[(dt, "window")] = check(
+            "flash_prefill",
+            ops.flash_attention(qq, kk, vv, q_pos=pe, window=1024,
+                                kv_len=kl),
+            ref.flash_attention_ref(qq, kk, vv, q_pos=pe, window=1024,
+                                    kv_len=kl), dt)
+    ms = timer(lambda: ops.flash_attention(q, k, v, q_pos=q_pos,
+                                           window=window, kv_len=kv_len))
+    say(f"[kernel] flash_prefill on the hybrid path: q {list(q.shape)} over "
+        f"{list(k.shape)} (G {H // KV}, window {window}) {q.dtype}, "
+        f"{ms:.4f} ms, max abs err {errs[q.dtype]:.3g} / "
+        f"{errs[torch.float32]:.3g} in f32; S {Se} with a binding window "
+        f"1024 and kv_len {kl.tolist()}: {errs[(torch.bfloat16, 'window')]:.3g}"
+        f" (bf16) / {errs[(torch.float32, 'window')]:.3g} (f32)")
+
+
+def decode_kernel(dev, launches, kept, dense_kept):
+    """The flash_decode kernel against its plain version and the paged
+    kernel on the inputs kept from the hybrid path (``kept``) and the
+    dense Qwen path (``dense_kept``), and its times; returns its
+    kernel-table row."""
+    from repro_torch.kernels import ops, ref
+
+    timer = Timer(dev)
+
+    def allowed(kv_len, window, Sk):
+        cols = torch.arange(Sk, device=dev)
+        kl = kv_len.long()[:, None]
+        return (cols[None] < kl) & (kl - 1 - cols[None] < window)
+
+    def as_pages(k, v):
+        """The same KV as 32-row pages in order, and their page table."""
+        B, Sk, KV, hd = k.shape
+        nbt = Sk // 32
+        assert nbt * 32 == Sk, Sk
+        pidx = torch.arange(B * nbt, device=dev, dtype=torch.int32).reshape(
+            B, nbt)
+        return (k.reshape(B * nbt, 32, KV, hd), v.reshape(B * nbt, 32, KV, hd),
+                pidx)
+
+    def paged_equal(q, k, v, kv_len):
+        """Identical KV as 32-row pages: the paged kernel's bits."""
+        return torch.equal(ops.flash_decode(q, k, v, kv_len, k.shape[1]),
+                           ops.flash_decode_paged(q, *as_pages(k, v), kv_len))
+
+    errs = {}
+    cases = {"hybrid": kept["flash_decode"], "dense": dense_kept}
+    for key, (_, (q, k, v, kv_len, window), _) in cases.items():
+        for dt in (torch.bfloat16, torch.float32):
+            qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
+            errs[(key, dt)] = check(
+                "flash_decode", ops.flash_decode(qq, kk, vv, kv_len, window),
+                ref.flash_decode_ref(qq, kk, vv, kv_len, window), dt)
+            assert paged_equal(qq, kk, vv, kv_len), (key, dt, "paged != dense")
+    # edges: Sk 1536 with a window of 1024 that binds, ragged lengths, at
+    # the two paths' head shapes
+    g = torch.Generator(device=dev).manual_seed(0)
+    for key, (_, (q, k, _, _, _), _) in cases.items():
+        B, H, hd = q.shape
+        KV = k.shape[2]
+        qe = torch.randn(B, H, hd, generator=g, device=dev).to(q.dtype)
+        ke = torch.randn(B, 1536, KV, hd, generator=g, device=dev).to(q.dtype)
+        ve = torch.randn(B, 1536, KV, hd, generator=g, device=dev).to(q.dtype)
+        kl = torch.randint(1, 1537, (B,), generator=g, device=dev,
+                           dtype=torch.int32)
+        kl[0], kl[-1] = 1536, 1
+        errs[(key, "window")] = check(
+            "flash_decode", ops.flash_decode(qe, ke, ve, kl, 1024),
+            ref.flash_decode_ref(qe, ke, ve, kl, 1024), q.dtype)
+    def measure(q, k, v, kv_len, window):
+        """(ms, plain ms, library ms, bound ms, bound by): the bytes are
+        q, kv_len and the output plus the allowed rows of K and V, read
+        once per KV head."""
+        H, hd = q.shape[1:]
+        Sk, KV = k.shape[1], k.shape[2]
+        mask = allowed(kv_len, window, Sk)
+        rows = int(mask.sum().item())
+        q4, kd, vd = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        m4 = mask[:, None, None, :]
+        return (timer(lambda: ops.flash_decode(q, k, v, kv_len, window)),
+                timer(lambda: ref.flash_decode_ref(q, k, v, kv_len, window)),
+                timer(lambda: F.scaled_dot_product_attention(
+                    q4, kd, vd, attn_mask=m4, enable_gqa=True)),
+                *bound(nbytes(q, kv_len) + nbytes(q)
+                       + 2 * rows * KV * hd * k.element_size(),
+                       4 * hd * H * rows, q.dtype))
+
+    # the two kernels on the same rows (no window), in turns: dense, paged,
+    # paged, dense
+    for key, (_, (q, k, v, kv_len, _), _) in cases.items():
+        pages = as_pages(k, v)
+
+        def dense_fn(q=q, k=k, v=v, kv_len=kv_len):
+            return ops.flash_decode(q, k, v, kv_len, k.shape[1])
+
+        def paged_fn(q=q, pages=pages, kv_len=kv_len):
+            return ops.flash_decode_paged(q, *pages, kv_len)
+
+        t = [timer(f) for f in (dense_fn, paged_fn, paged_fn, dense_fn)]
+        say(f"[kernel] flash_decode vs flash_decode_paged on the {key} "
+            f"path's rows ({q.dtype}): dense {t[0]:.4f} / {t[3]:.4f} ms, "
+            f"paged {t[1]:.4f} / {t[2]:.4f} ms")
+
+    _, (q, k, *_), _ = dense_kept
+    t = measure(*dense_kept[1])
+    say(f"[kernel] flash_decode on the dense Qwen path: q {list(q.shape)} "
+        f"over {list(k.shape)} {q.dtype}, {t[0]:.4f} ms (plain {t[1]:.4f}, "
+        f"library {t[2]:.4f}, bound {t[3]:.4f} by {t[4]}), max abs err "
+        f"{errs[('dense', q.dtype)]:.3g}; binding window 1024 at Sk 1536: "
+        f"{errs[('dense', 'window')]:.3g} (f32, Qwen heads) / "
+        f"{errs[('hybrid', 'window')]:.3g} (bf16, Hymba heads); paged == "
+        f"dense bit-equal on both paths' inputs")
+
+    _, (q, k, *_), _ = kept["flash_decode"]
+    ms, plain_ms, library_ms, bms, by = measure(*kept["flash_decode"][1])
+    return dict(
+        name="flash_decode", shape=list(q.shape) + [k.shape[1]],
+        max_abs_err=errs[("hybrid", q.dtype)],
+        max_abs_err_f32=errs[("hybrid", torch.float32)],
+        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=library_ms, launches=launches["flash_decode"])
+
+
+# ------------------------------------------------------------- phase 6
 def smoke_parity(dev):
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.rounds import generate_trace
     from repro_torch.models import init_params
-    from repro_torch.serving import ServingEngine, TokenDancePolicy
+    from repro_torch.serving import ServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_smoke_config("qwen2.5-7b").replace(dtype="float32")
-    cpu_params = init_params(cfg, 0, device="cpu")
 
     def to_dev(tree):
         if isinstance(tree, dict):
             return {k: to_dev(v) for k, v in tree.items()}
         return tree.to(dev)
 
-    gpu_params = to_dev(cpu_params)
-    out = {}
-    for name, params in (("cpu", cpu_params), ("cuda", gpu_params)):
-        eng = ServingEngine(params, cfg, TokenDancePolicy(), gen_len=32,
-                            recompute_ratio=0.1, keep_logits=True)
-        out[name] = eng.serve(generate_trace(
-            "generative_agents", 3, 3, cfg.vocab_size, seed=11,
-            jitter_hist=False))
-    worst = 0.0
-    for c, g in zip(out["cpu"], out["cuda"]):
-        np.testing.assert_array_equal(g.outputs, c.outputs)
-        err = float(np.abs(g.first_logits - c.first_logits).max())
-        assert err <= 1e-3, (c.round_idx, err)
-        worst = max(worst, err)
-        assert json.dumps(g.reuse, sort_keys=True, default=str) == \
-            json.dumps(c.reuse, sort_keys=True, default=str), c.round_idx
-    say(f"[smoke] f32 smoke engine, cuda vs cpu: greedy tokens and reuse "
-        f"ledgers equal in {len(out['cpu'])} rounds x 3 agents, max |logit "
-        f"diff| {worst:.3g} (atol 1e-3)")
+    for arch in ("qwen2.5-7b", "hymba-1.5b"):
+        cfg = get_smoke_config(arch).replace(dtype="float32")
+        cpu_params = init_params(cfg, 0, device="cpu")
+        gpu_params = to_dev(cpu_params)
+        out = {}
+        for name, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+            eng = ServingEngine(params, cfg, "tokendance", gen_len=32,
+                                recompute_ratio=0.1, keep_logits=True)
+            out[name] = eng.serve(generate_trace(
+                "generative_agents", 3, 3, cfg.vocab_size, seed=11,
+                jitter_hist=False))
+        worst = 0.0
+        for c, g in zip(out["cpu"], out["cuda"]):
+            np.testing.assert_array_equal(g.outputs, c.outputs)
+            err = float(np.abs(g.first_logits - c.first_logits).max())
+            assert err <= 1e-3, (arch, c.round_idx, err)
+            worst = max(worst, err)
+            assert json.dumps(g.reuse, sort_keys=True, default=str) == \
+                json.dumps(c.reuse, sort_keys=True, default=str), c.round_idx
+        say(f"[smoke] f32 {cfg.name} engine ({eng.policy.name}), cuda vs "
+            f"cpu: greedy tokens and reuse ledgers equal in "
+            f"{len(out['cpu'])} rounds x 3 agents, max |logit diff| "
+            f"{worst:.3g} (atol 1e-3)")
 
 
-# ------------------------------------------------------------- phase 6
+# ------------------------------------------------------------- phase 7
 def restore(dev):
     """The storage walkthrough at full width and the two restore kernels
     on its family; returns their kernel-table rows."""
@@ -647,6 +910,10 @@ def main() -> int:
     build()
     launches, kept = main_path(dev)
     table = kernels(dev, launches, kept)
+    hlaunches, hkept = hybrid(dev)
+    hybrid_prefill(dev, hkept)
+    table += table_rows([decode_kernel(dev, hlaunches, hkept,
+                                       kept["flash_decode_dense"])])
     smoke_parity(dev)
     table += table_rows(restore(dev))
     say(smi)

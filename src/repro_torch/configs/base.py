@@ -157,6 +157,7 @@ class ModelConfig:
 # arch id -> module name under repro_torch.configs
 ARCH_IDS = {
     "qwen2.5-7b": "qwen25_7b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 

@@ -10,8 +10,8 @@ bridge into Diff-Aware Storage (§4.3).
 Private histories may arrive PAGED (:class:`PagedPrivate`): the family
 page pool of the §4.4 restore plus per-request page tables, consumed by
 the recovery pass without densification. ``_densify_paged`` is the
-parity oracle. The per-request ``serial_reuse`` baseline is not ported
-yet.
+parity oracle. ``serial_reuse`` is the per-request baseline the serial
+PIC policy runs.
 """
 from __future__ import annotations
 
@@ -98,6 +98,14 @@ class PagedPrivate:
                       and self.identity_span_src())
             self.__dict__["_fast_ok"] = cached
         return cached
+
+    def materialize(self, S: int) -> tuple:
+        """Dense parity oracle: ``(pk, pv, psrc, pmask)`` with ``pk``/``pv``
+        ``[N, L, S, KV, hd]``, as the serial baseline consumes them."""
+        pk, pv = _densify_paged(
+            self.pool_k, self.pool_v, self.page_idx, self.tail_k,
+            self.tail_v, S=S, start=self.start, span_len=self.span_len)
+        return pk, pv, self.src, self.mask
 
 
 def _densify_paged(pool_k, pool_v, page_idx, tail_k, tail_v, *,
@@ -232,3 +240,37 @@ class KVCollector:
         plan = ReusePlan(list(request_ids), master, sel_all[0], dev,
                          tokens.shape[1], n_sel, sel_idx_all=sel_all)
         return CollectiveResult(plan, res)
+
+    def serial_reuse(
+        self,
+        request_ids: List[str],
+        tokens: torch.Tensor,        # [N, S]
+        cached_k: torch.Tensor,      # [L, S, KV, hd]
+        cached_v: torch.Tensor,
+        src_pos: torch.Tensor,       # [S] int32
+        shared_mask: torch.Tensor,   # [S] bool
+        n_sel: int,
+        priv=None,
+    ) -> List[PICResult]:
+        """Per-request baseline (T2 path): N independent reuse passes, each
+        repeating RoPE alignment and important-position selection. Same
+        contracts as :meth:`collective_reuse`; returns one
+        :class:`PICResult` per request (each with B = 1 leading axes). A
+        :class:`PagedPrivate` ``priv`` is densified up front — the
+        baseline pays the full per-request materialization the
+        collective paged path avoids."""
+        if isinstance(priv, PagedPrivate):
+            priv = priv.materialize(tokens.shape[1])
+        self.align_passes += tokens.shape[0]
+        out = []
+        for i in range(tokens.shape[0]):
+            kw = {}
+            if priv is not None:
+                pk, pv, psrc, pmask = priv
+                kw = dict(priv_k=pk[i : i + 1], priv_v=pv[i : i + 1],
+                          priv_src=psrc[i : i + 1], priv_mask=pmask)
+            out.append(pic_prefill(
+                self.params, self.cfg, tokens[i : i + 1], cached_k, cached_v,
+                src_pos, shared_mask, n_sel, check_layer=self.check_layer,
+                block_select=self.block_select, **kw))
+        return out

@@ -112,8 +112,8 @@ def _selective_block(h_sel, p, cfg, *, sel_pos, cos_sel, sin_sel,
     k = apply_rope(k, cos_sel, sin_sel)
     k_merged = _scatter_rows(k_base, k, sel_idx)
     v_merged = _scatter_rows(v_base, v, sel_idx)
-    h_sel = h_sel + out_proj(attention(q, k_merged, v_merged, q_pos=sel_pos),
-                             p["attn"])
+    h_sel = h_sel + out_proj(attention(q, k_merged, v_merged, q_pos=sel_pos,
+                                       window=k_merged.shape[1]), p["attn"])
     h_sel = h_sel + swiglu_mlp(rmsnorm(h_sel, p["ln2"], cfg.rmsnorm_eps),
                                p["mlp"])
     return h_sel, k_merged, v_merged
@@ -226,10 +226,10 @@ def pic_prefill(
     cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim, theta)
     fresh_k, fresh_v = [], []
     for l in range(check_layer + 1):
-        h, k, v = block_full(h, layer(params, l), cfg, positions=positions,
-                             cos=cos, sin=sin)
-        fresh_k.append(k)
-        fresh_v.append(v)
+        h, outs = block_full(h, layer(params, l), cfg, window=S,
+                             positions=positions, cos=cos, sin=sin)
+        fresh_k.append(outs["k"])
+        fresh_v.append(outs["v"])
 
     # ---- 3. importance selection on the check layer -----------------------
     base_chk_k, _ = base_layer(check_layer)

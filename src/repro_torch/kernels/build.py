@@ -21,7 +21,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("rope_align", "block_diff", "flash_prefill", "flash_decode_paged",
-           "diff_restore")
+           "flash_decode", "diff_restore")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +44,8 @@ SIGNATURES = {
     "flash_decode_paged": ("flash_decode_paged_launch",
                            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _F, _I, _P]),
+    "flash_decode": ("flash_decode_launch",
+                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
     "fused_diff_restore": ("fused_diff_restore_launch",
                            [_P] * 10 + [_I] * 8 + [_P]),
     "fused_family_restore": ("fused_family_restore_launch",
@@ -69,7 +71,7 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha1()
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"

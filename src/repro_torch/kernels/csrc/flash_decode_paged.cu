@@ -18,18 +18,49 @@
 // query heads that share that KV head (G = 7 for Qwen2.5-7B), so each page
 // is read from device memory once per group, not once per query head. The
 // block walks only the ceil(span_len / bt) pages the sequence needs, then
-// the tail. A page (bt = 32 rows) is staged in shared memory as f32 with a
-// padded row stride (hd + 1) so the per-key dot products of a warp hit 32
-// different banks. Scores for the G x 32 (head, key) pairs are computed
-// one pair per thread; one warp per head folds them into the running
-// (max, sum) of the online softmax with shuffles; then the G x hd
-// accumulator in shared memory is rescaled and updated.
-#include "common.cuh"
+// the tail, one page (bt = 32 rows) per tile of decode::attend
+// (decode_attn.cuh), whose tile arithmetic the dense decode kernel
+// (flash_decode.cu) shares.
+#include "decode_attn.cuh"
+
+using decode::kBT;
+using decode::kMaxG;
+using decode::kThreads;
 
 namespace {
-constexpr int kBT = 32;       // page rows == warp width
-constexpr int kMaxG = 8;      // query heads per KV head
-constexpr int kThreads = 128;
+
+// Tile t < npages is page page_idx[b, t]; tile npages + u is rows
+// u*32 .. u*32+31 of sequence b's dense tail.
+template <typename T, int HD>
+struct PagedRows {
+  const T* pk;
+  const T* pv;
+  const int* pages;          // page_idx row of sequence b
+  const T* tk;               // sequence b's tail, or null
+  const T* tv;
+  int KV, kvh, npages, Tp, span, tail_len;
+
+  __device__ __forceinline__ bool row(int t, int j, const T*& k,
+                                      const T*& v) const {
+    long long o;
+    if (t < npages) {
+      o = (((long long)pages[t] * kBT + j) * KV + kvh) * HD;
+      k = pk + o;
+      v = pv + o;
+      return true;
+    }
+    const int r = (t - npages) * kBT + j;
+    if (r >= Tp) return false;
+    o = ((long long)r * KV + kvh) * HD;
+    k = tk + o;
+    v = tv + o;
+    return true;
+  }
+  __device__ __forceinline__ bool valid(int t, int j) const {
+    return t < npages ? t * kBT + j < span : (t - npages) * kBT + j < tail_len;
+  }
+};
+
 }  // namespace
 
 template <typename T, int HD>
@@ -40,86 +71,17 @@ flash_decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ pk,
                           const T* __restrict__ tk, const T* __restrict__ tv,
                           T* __restrict__ out, int H, int KV, int nbt, int Tp,
                           int tail_len, float scale) {
-  __shared__ float qs[kMaxG][HD];
-  __shared__ float Ks[kBT][HD + 1];
-  __shared__ float Vs[kBT][HD + 1];
-  __shared__ float ps[kMaxG][kBT];
-  __shared__ float acc[kMaxG][HD];
-  __shared__ float m_s[kMaxG], l_s[kMaxG], a_s[kMaxG];
-
   const int kvh = blockIdx.x, b = blockIdx.y;
-  const int G = H / KV;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  for (int idx = tid; idx < G * HD; idx += kThreads) {
-    const int g = idx / HD, d = idx % HD;
-    qs[g][d] = to_f32(q[((long long)b * H + kvh * G + g) * HD + d]);
-    acc[g][d] = 0.f;
-  }
-  if (tid < G) { m_s[tid] = kNegInf; l_s[tid] = 0.f; }
-
   const int span = span_len[b];
   const int npages = min((span + kBT - 1) / kBT, nbt);
   const int ntail = tk ? (tail_len + kBT - 1) / kBT : 0;
-  for (int t = 0; t < npages + ntail; ++t) {
-    const bool is_page = t < npages;
-    const int tt = t - npages;
-    __syncthreads();
-    const long long page = is_page ? (long long)page_idx[(long long)b * nbt + t] : 0;
-    for (int idx = tid; idx < kBT * HD; idx += kThreads) {
-      const int j = idx / HD, d = idx % HD;
-      float kk = 0.f, vv = 0.f;
-      if (is_page) {
-        const long long o = ((page * kBT + j) * KV + kvh) * HD + d;
-        kk = to_f32(pk[o]);
-        vv = to_f32(pv[o]);
-      } else if (tt * kBT + j < Tp) {
-        const long long o = (((long long)b * Tp + tt * kBT + j) * KV + kvh) * HD + d;
-        kk = to_f32(tk[o]);
-        vv = to_f32(tv[o]);
-      }
-      Ks[j][d] = kk;
-      Vs[j][d] = vv;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < G * kBT; idx += kThreads) {
-      const int g = idx / kBT, j = idx % kBT;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) dot += qs[g][d] * Ks[j][d];
-      const bool ok = is_page ? (t * kBT + j < span) : (tt * kBT + j < tail_len);
-      ps[g][j] = ok ? dot * scale : kNegInf;
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += kThreads / 32) {
-      const float x = ps[g][lane];
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, warp_max(x));
-      const float p = expf(x - m_new);
-      const float sum = warp_sum(p);
-      ps[g][lane] = p;
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        l_s[g] = alpha * l_s[g] + sum;
-        m_s[g] = m_new;
-        a_s[g] = alpha;
-      }
-    }
-    __syncthreads();
-    for (int idx = tid; idx < G * HD; idx += kThreads) {
-      const int g = idx / HD, d = idx % HD;
-      float a = acc[g][d] * a_s[g];
-#pragma unroll 8
-      for (int j = 0; j < kBT; ++j) a += ps[g][j] * Vs[j][d];
-      acc[g][d] = a;
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < G * HD; idx += kThreads) {
-    const int g = idx / HD, d = idx % HD;
-    out[((long long)b * H + kvh * G + g) * HD + d] =
-        from_f32<T>(acc[g][d] / fmaxf(l_s[g], 1e-30f));
-  }
+  const long long tail_off = (long long)b * Tp * KV * HD;
+  const PagedRows<T, HD> rows{pk, pv, page_idx + (long long)b * nbt,
+                              tk ? tk + tail_off : nullptr,
+                              tv ? tv + tail_off : nullptr,
+                              KV, kvh, npages, Tp, span, tail_len};
+  decode::attend<T, HD>(q, out, b, kvh, H, KV, scale, 0, npages + ntail,
+                        rows);
 }
 
 template <typename T>

@@ -27,6 +27,7 @@ from repro_torch.kernels import ref
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"rope_align": 0, "block_diff": 0,
                             "flash_prefill": 0, "flash_decode_paged": 0,
+                            "flash_decode": 0,
                             "fused_diff_restore": 0,
                             "fused_family_restore": 0}
 #: calls each wrapper answered with its plain version (CPU tensors)
@@ -65,6 +66,14 @@ def _check(name: str, t: torch.Tensor, dtype=None, ndim=None) -> None:
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got "
                          f"{tuple(t.shape)}")
+
+
+def _check_rows(name: str, t: torch.Tensor, dtype) -> None:
+    """A K/V operand of the decode kernels, which load its rows in
+    16-byte words."""
+    _check(name, t, dtype=dtype, ndim=4)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -181,7 +190,7 @@ def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
                                           span_len, tail_k, tail_v, tail_len)
     _check("q", q, ndim=3)
     for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
-        _check(name, t, dtype=q.dtype, ndim=4)
+        _check_rows(name, t, q.dtype)
     _check("page_idx", page_idx, dtype=torch.int32, ndim=2)
     _check("span_len", span_len, dtype=torch.int32, ndim=1)
     B, H, hd = q.shape
@@ -195,8 +204,8 @@ def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
                          f"page_idx={tuple(page_idx.shape)}")
     Tp = 0
     if tail_k is not None:
-        _check("tail_k", tail_k, dtype=q.dtype, ndim=4)
-        _check("tail_v", tail_v, dtype=q.dtype, ndim=4)
+        _check_rows("tail_k", tail_k, q.dtype)
+        _check_rows("tail_v", tail_v, q.dtype)
         Tp = tail_k.shape[1]
         if (tail_k.shape != tail_v.shape or tail_k.shape[0] != B
                 or tail_k.shape[2:] != pool_k.shape[2:] or tail_len > Tp):
@@ -208,6 +217,36 @@ def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
             None if tail_v is None else tail_v.data_ptr(),
             out.data_ptr(), B, H, KV, hd, bt, page_idx.shape[1], Tp,
             tail_len if tail_k is not None else 0, 1.0 / math.sqrt(hd),
+            _DTYPES[q.dtype], _stream(q))
+    return out
+
+
+# --------------------------------------------------------------------------
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_len: torch.Tensor, window: int) -> torch.Tensor:
+    """One query per sequence (q ``[B, H, hd]``) at position
+    ``kv_len[b] - 1`` over its dense KV ``[B, Sk, KV, hd]`` (``kv_len``
+    int32 ``[B]`` on the device): column j is allowed iff ``j <
+    kv_len[b]`` and ``kv_len[b] - 1 - j < window``. Returns
+    ``[B, H, hd]``."""
+    if _on_cpu("flash_decode", q, k, v, kv_len):
+        return ref.flash_decode_ref(q, k, v, kv_len, window)
+    _check("q", q, ndim=3)
+    _check_rows("k", k, q.dtype)
+    _check_rows("v", v, q.dtype)
+    _check("kv_len", kv_len, dtype=torch.int32, ndim=1)
+    B, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if (k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd
+            or kv_len.shape[0] != B or H % KV or H // KV > 8
+            or hd not in (32, 64, 128) or window < 1):
+        raise ValueError(f"bad flash_decode args q={tuple(q.shape)} "
+                         f"k={tuple(k.shape)} kv_len={tuple(kv_len.shape)} "
+                         f"window={window}")
+    out = torch.empty_like(q)
+    _launch("flash_decode", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kv_len.data_ptr(), out.data_ptr(), B, H, KV, hd, Sk,
+            int(min(window, 2 ** 31 - 1)), 1.0 / math.sqrt(hd),
             _DTYPES[q.dtype], _stream(q))
     return out
 

@@ -155,6 +155,43 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, hd).to(v.dtype)
 
 
+def _decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   allowed: torch.Tensor, scale: float) -> torch.Tensor:
+    """One query per sequence (q ``[B, H, hd]``) over dense k/v
+    ``[B, Sk, KV, hd]`` where ``allowed`` ``[B, Sk]``; softmax in f32.
+    The one body of both decode references, so the dense and the paged
+    plain versions compute the same bits on the same rows."""
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd).float()
+    logits = torch.einsum("bkgh,bskh->bkgs", qg, k.float()) * scale
+    logits = torch.where(allowed[:, None, None], logits,
+                         torch.tensor(NEG_INF, device=q.device))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", probs, v.float())
+    return out.reshape(B, H, hd).to(v.dtype)
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor, window: int,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """One query per sequence over its dense KV, with a sliding window.
+
+    q ``[B, H, hd]``; k/v ``[B, Sk, KV, hd]``; ``kv_len`` int ``[B]``.
+    Sequence b's query sits at position ``kv_len[b] - 1``: column ``j`` is
+    allowed iff ``j < kv_len[b]`` and ``kv_len[b] - 1 - j < window``.
+    Masked logits are ``-2^30``; softmax in f32. Returns ``[B, H, hd]``
+    in v's dtype (the JAX ``flash_decode_ref`` with a batch axis).
+    """
+    hd = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    cols = torch.arange(k.shape[1], device=q.device)
+    kl = kv_len.long()[:, None]
+    allowed = (cols[None, :] < kl) & (kl - 1 - cols[None, :] < window)
+    return _decode_attend(q, k, v, allowed, scale)
+
+
 def flash_decode_paged_ref(q: torch.Tensor, pool_k: torch.Tensor,
                            pool_v: torch.Tensor, page_idx: torch.Tensor,
                            span_len: torch.Tensor,
@@ -173,7 +210,6 @@ def flash_decode_paged_ref(q: torch.Tensor, pool_k: torch.Tensor,
     B, H, hd = q.shape
     P, bt, KV, _ = pool_k.shape
     nbt = page_idx.shape[1]
-    G = H // KV
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     idx = page_idx.long()
     k = pool_k[idx].reshape(B, nbt * bt, KV, hd)
@@ -186,10 +222,4 @@ def flash_decode_paged_ref(q: torch.Tensor, pool_k: torch.Tensor,
         v = torch.cat([v, tail_v], dim=1)
         tvalid = torch.arange(Tp, device=q.device) < tail_len
         valid = torch.cat([valid, tvalid[None].expand(B, Tp)], dim=1)
-    qg = q.reshape(B, KV, G, hd).float()
-    logits = torch.einsum("bkgh,bskh->bkgs", qg, k.float()) * scale
-    logits = torch.where(valid[:, None, None], logits,
-                         torch.tensor(NEG_INF, device=q.device))
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgs,bskh->bkgh", probs, v.float())
-    return out.reshape(B, H, hd).to(v.dtype)
+    return _decode_attend(q, k, v, valid, scale)

@@ -4,9 +4,10 @@ Plain functions on tensors with parameters in nested dicts, as in
 ``repro.models.layers``, with the JAX package's layouts at every public
 function (activations ``[B, S, ...]``, heads ``[B, S, H, hd]``). All
 attention goes through :func:`attention`, which launches the port's
-flash-attention kernel on a CUDA tensor (``kernels.ops``). Only the
-dense-transformer features of the served configuration are ported:
-:func:`check_supported` raises for the rest.
+flash-attention kernel on a CUDA tensor (``kernels.ops``). The features
+of the served configurations are ported — dense attention with sliding
+windows, and SSM / hybrid layers (``models.ssm``); :func:`check_supported`
+raises for the rest.
 """
 from __future__ import annotations
 
@@ -19,16 +20,12 @@ from repro_torch.kernels.ref import rope_freqs
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for architecture features the port
-    does not implement yet (MoE, logit softcap, sliding windows, qk-norm,
-    SSM state, tied embeddings, non-text frontends)."""
+    does not implement yet (MoE, logit softcap, qk-norm, tied embeddings,
+    non-text frontends)."""
     missing = [name for name, on in (
         ("MoE", cfg.is_moe),
         ("logit softcap", bool(cfg.attn_logit_softcap)),
-        ("sliding window", bool(cfg.sliding_window
-                                or cfg.global_layer_interval
-                                or cfg.long_context_window)),
         ("qk_norm", cfg.qk_norm),
-        ("SSM", cfg.has_ssm or cfg.hybrid or not cfg.has_attention),
         ("tied embeddings", cfg.tie_embeddings),
         ("frontend", cfg.frontend != "none"),
     ) if on]
@@ -85,13 +82,12 @@ def rope_shift(k: torch.Tensor, old_pos: torch.Tensor, new_pos: torch.Tensor,
 
 # --------------------------------------------------------------------------
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              q_pos: torch.Tensor) -> torch.Tensor:
-    """Full-window GQA attention of queries at ``q_pos`` ([B, Sq] int32)
-    over KV whose column j sits at position j: the JAX ``gqa_attention``
-    with ``kv_pos = arange(Sk)`` and ``window = Sk``, as every caller on
-    the serving path uses it. q ``[B, Sq, H, hd]``, k/v
-    ``[B, Sk, KV, hd]``."""
-    return ops.flash_attention(q, k, v, q_pos=q_pos, window=k.shape[1])
+              q_pos: torch.Tensor, window: int) -> torch.Tensor:
+    """GQA attention of queries at ``q_pos`` ([B, Sq] int32) over KV whose
+    column j sits at position j: the JAX ``gqa_attention`` with ``kv_pos =
+    arange(Sk)`` — column j is allowed iff ``0 <= q_pos - j < window``.
+    q ``[B, Sq, H, hd]``, k/v ``[B, Sk, KV, hd]``."""
+    return ops.flash_attention(q, k, v, q_pos=q_pos, window=window)
 
 
 def project_qkv(x: torch.Tensor, p: dict, cfg):

@@ -1,5 +1,7 @@
-"""Decoder model of the port: weights, prefill and paged decode.
+"""Decoder model of the port: weights, prefill and decode.
 
+One block function handles attention, SSM and hybrid layers (attention
+and Mamba2 heads side by side, each output RMS-normed, then averaged).
 Parameters are the JAX package's pytree as nested dicts of tensors, with
 every leaf under ``params["blocks"]`` stacked on a leading layer axis
 (``[L, ...]``, as ``repro.core.pic._layer`` indexes it). Layers run as a
@@ -8,7 +10,9 @@ Python loop in eager mode. Public API:
   init_params(cfg, seed, device=None)       -> params (random, seeded)
   from_jax(params_np, cfg, device=None)     -> params (the JAX weights)
   prefill(params, cfg, tokens, ...)         -> logits, cache
-  decode_step_paged(params, cfg, token, cache) -> logits, cache
+  make_empty_cache(cfg, batch, max_len, ...) -> cache
+  decode_step(params, cfg, token, cache)    -> logits, cache (dense KV)
+  decode_step_paged(params, cfg, token, cache) -> logits, cache (pages)
 
 ``device=None`` means the CUDA device, and raises when there is none.
 """
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_rope,
     attention,
@@ -79,19 +84,41 @@ def init_params(cfg: ModelConfig, seed: int, device=None) -> dict:
     def zeros(shape):
         return torch.zeros(shape, dtype=dt, device=dev)
 
+    def uniform(shape):
+        return torch.rand(shape, generator=gen, device=dev,
+                          dtype=torch.float32)
+
     out_scale = 0.02 / math.sqrt(2 * L)
-    attn = {"wq": w((L, D, H * hd)), "wk": w((L, D, KV * hd)),
-            "wv": w((L, D, KV * hd)), "wo": w((L, H * hd, D), out_scale)}
-    if cfg.attn_bias:
-        attn.update(bq=zeros((L, H * hd)), bk=zeros((L, KV * hd)),
-                    bv=zeros((L, KV * hd)))
-    blocks = {
-        "ln1": zeros((L, D)),
-        "attn": attn,
-        "mlp": {"w_gate": w((L, D, F_)), "w_up": w((L, D, F_)),
-                "w_down": w((L, F_, D), out_scale)},
-        "ln2": zeros((L, D)),
-    }
+    blocks = {"ln1": zeros((L, D))}
+    if cfg.has_attention:
+        attn = {"wq": w((L, D, H * hd)), "wk": w((L, D, KV * hd)),
+                "wv": w((L, D, KV * hd)), "wo": w((L, H * hd, D), out_scale)}
+        if cfg.attn_bias:
+            attn.update(bq=zeros((L, H * hd)), bk=zeros((L, KV * hd)),
+                        bv=zeros((L, KV * hd)))
+        blocks["attn"] = attn
+    if cfg.has_ssm:
+        di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        dt_init = torch.exp(uniform((L, nh)) * (math.log(0.1)
+                                                 - math.log(0.001))
+                            + math.log(0.001))
+        blocks["ssm"] = {
+            "in_proj": w((L, D, 2 * di + 2 * n + nh)),
+            "conv_w": w((L, ssm_mod.D_CONV, di + 2 * n), 0.2),
+            # dt_bias and A_log stay f32 whatever the model dtype
+            "dt_bias": dt_init + torch.log(-torch.expm1(-dt_init)),
+            "A_log": torch.log(1.0 + 15.0 * uniform((L, nh))),
+            "D_skip": torch.ones((L, nh), dtype=dt, device=dev),
+            "out_norm": zeros((L, di)),
+            "out_proj": w((L, di, D), out_scale),
+        }
+    if cfg.hybrid:
+        blocks["attn_out_norm"] = zeros((L, D))
+        blocks["ssm_out_norm"] = zeros((L, D))
+    if cfg.d_ff and cfg.arch_type != "ssm":
+        blocks["mlp"] = {"w_gate": w((L, D, F_)), "w_up": w((L, D, F_)),
+                         "w_down": w((L, F_, D), out_scale)}
+        blocks["ln2"] = zeros((L, D))
     return {"embed": w((cfg.vocab_size, D), stacked=False), "blocks": blocks,
             "final_norm": zeros((D,)),
             "lm_head": w((D, cfg.vocab_size), stacked=False)}
@@ -107,7 +134,8 @@ def _to_torch(x, device) -> torch.Tensor:
 
 def from_jax(params_np: dict, cfg: ModelConfig, device=None) -> dict:
     """The JAX ``init_params`` pytree (leaves as numpy arrays) as the
-    port's parameters — same nesting, layer-stacked leaves unchanged."""
+    port's parameters — same nesting, layer-stacked leaves unchanged, each
+    in its own dtype (the SSM's ``dt_bias``/``A_log`` stay f32)."""
     check_supported(cfg)
     dev = resolve_device(device)
 
@@ -131,18 +159,47 @@ def layer(params: dict, l: int) -> dict:
 # --------------------------------------------------------------------------
 # forward pieces
 # --------------------------------------------------------------------------
-def block_full(h: torch.Tensor, p: dict, cfg: ModelConfig, *,
+def _windows(cfg: ModelConfig, max_len: int):
+    """Per-layer attention window for a cache of ``max_len`` rows (a
+    window of ``max_len`` or more is full causal attention)."""
+    return list(cfg.layer_window_sizes(max_len)) or [max_len] * cfg.n_layers
+
+
+def block_full(h: torch.Tensor, p: dict, cfg: ModelConfig, *, window: int,
                positions: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     """One full-sequence layer (prefill, and PIC's fresh layers): causal
-    attention over the sequence itself. Returns (h, k, v) with the layer's
-    RoPE'd keys and values ``[B, S, KV, hd]``."""
+    attention over the sequence itself within ``window``, and/or the
+    Mamba2 mixer. Returns (h, outs) with the layer's RoPE'd keys and
+    values ``outs["k"]``/``outs["v"]`` ``[B, S, KV, hd]`` and its SSM and
+    conv states ``outs["ssm"]``/``outs["conv"]``."""
+    outs = {}
     x = rmsnorm(h, p["ln1"], cfg.rmsnorm_eps)
-    q, k, v = project_qkv(x, p["attn"], cfg)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    h = h + out_proj(attention(q, k, v, q_pos=positions), p["attn"])
-    h = h + swiglu_mlp(rmsnorm(h, p["ln2"], cfg.rmsnorm_eps), p["mlp"])
-    return h, k, v
+    mixer = None
+    if cfg.has_attention:
+        q, k, v = project_qkv(x, p["attn"], cfg)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        outs["k"], outs["v"] = k, v
+        mixer = out_proj(attention(q, k, v, q_pos=positions, window=window),
+                         p["attn"])
+        if cfg.hybrid:
+            mixer = rmsnorm(mixer, p["attn_out_norm"], cfg.rmsnorm_eps)
+    if cfg.has_ssm:
+        s_out, (outs["ssm"], outs["conv"]) = ssm_mod.mamba2_forward(
+            x, p["ssm"], cfg=cfg)
+        mixer = _mix(mixer, s_out, p, cfg)
+    h = h + mixer
+    if "mlp" in p:
+        h = h + swiglu_mlp(rmsnorm(h, p["ln2"], cfg.rmsnorm_eps), p["mlp"])
+    return h, outs
+
+
+def _mix(a_out, s_out, p: dict, cfg: ModelConfig):
+    """The SSM output, or for a hybrid layer the mean of the two RMS-normed
+    mixer outputs."""
+    if not cfg.hybrid:
+        return s_out
+    return 0.5 * (a_out + rmsnorm(s_out, p["ssm_out_norm"], cfg.rmsnorm_eps))
 
 
 def logits_of(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -153,28 +210,128 @@ def logits_of(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             max_len: Optional[int] = None, logits_last_only: bool = False):
     """Run the prompt ``[B, S]``; returns (logits, cache) with cache
-    ``{"length": [B], "k"/"v": [L, B, max_len, KV, hd]}`` (zero past S).
-    ``logits_last_only`` computes the last position's logits only."""
+    ``{"length": [B], "k"/"v": [L, B, max_len, KV, hd]}`` (zero past S)
+    for attention, plus ``"ssm"`` ``[L, B, nh, hp, n]`` (f32) and
+    ``"conv"`` ``[L, B, D_CONV-1, conv_dim]`` for SSM layers. Attention
+    windows are the layers' windows at ``max_len``, as the JAX ``prefill``
+    takes them. ``logits_last_only`` computes the last position's logits
+    only."""
     check_supported(cfg)
     B, S = tokens.shape
     max_len = max_len or S
     h = params["embed"][tokens].to(dtype_of(cfg))
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S).contiguous()
-    cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    ks, vs = [], []
+    cos = sin = None
+    if cfg.has_attention:
+        cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim,
+                                cfg.rope_theta)
+    windows = _windows(cfg, max_len)
+    per_layer = []
     for l in range(cfg.n_layers):
-        h, k, v = block_full(h, layer(params, l), cfg, positions=positions,
-                             cos=cos, sin=sin)
-        ks.append(k)
-        vs.append(v)
+        h, outs = block_full(h, layer(params, l), cfg, window=windows[l],
+                             positions=positions, cos=cos, sin=sin)
+        per_layer.append(outs)
     logits = logits_of(params, cfg, h[:, -1:] if logits_last_only else h)
-    pad = (0, 0, 0, 0, 0, max_len - S)
     cache = {"length": torch.full((B,), S, dtype=torch.int32,
-                                  device=tokens.device),
-             "k": torch.nn.functional.pad(torch.stack(ks), pad),
-             "v": torch.nn.functional.pad(torch.stack(vs), pad)}
+                                  device=tokens.device)}
+    if cfg.has_attention:
+        pad = (0, 0, 0, 0, 0, max_len - S)
+        for key in ("k", "v"):
+            cache[key] = torch.nn.functional.pad(
+                torch.stack([o[key] for o in per_layer]), pad)
+    if cfg.has_ssm:
+        for key in ("ssm", "conv"):
+            cache[key] = torch.stack([o[key] for o in per_layer])
     return logits, cache
+
+
+def make_empty_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+                     device=None) -> dict:
+    """An all-empty dense decode cache (``length`` 0)."""
+    dev = resolve_device(device)
+    dt = dtype or dtype_of(cfg)
+    L = cfg.n_layers
+    cache = {"length": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if cfg.has_attention:
+        KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        cache["k"] = torch.zeros((L, batch, max_len, KV, hd), dtype=dt,
+                                 device=dev)
+        cache["v"] = torch.zeros_like(cache["k"])
+    if cfg.has_ssm:
+        cache["ssm"] = torch.zeros(
+            (L, batch, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state),
+            dtype=torch.float32, device=dev)
+        cache["conv"] = torch.zeros(
+            (L, batch, ssm_mod.D_CONV - 1, cfg.d_inner + 2 * cfg.ssm_state),
+            dtype=dt, device=dev)
+    return cache
+
+
+def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                cache: dict):
+    """One greedy-decode step over a dense cache (the engine's dense loop:
+    every SSM or hybrid model, and the oracle of the paged loop).
+
+    ``cache``: ``length`` int32 ``[B]`` (tokens cached; valid from
+    position 0), attention ``k``/``v`` ``[L, B, max_len, KV, hd]`` and SSM
+    ``ssm``/``conv`` state as :func:`prefill` returns them. The new
+    token's K/V is written into row ``length[b]``, IN PLACE (the caller
+    owns the cache), in the cache's dtype — a cache wider than the model
+    (f32 KV recovered for a bf16 model) promotes the residual stream from
+    the first attention on, as in :func:`decode_step_paged`. Attention
+    reads the first ``length + 1`` rows within each layer's window
+    through the dense decode kernel; the SSM layers take one recurrent
+    step. Returns (logits ``[B, V]``, cache with ``length + 1`` and the
+    new SSM states).
+    """
+    check_supported(cfg)
+    B = token.shape[0]
+    h = params["embed"][token][:, None].to(dtype_of(cfg))
+    length = cache["length"]
+    new_cache = dict(cache)
+    if cfg.has_attention:
+        cos, sin = rope_cos_sin(length[:, None], cfg.resolved_head_dim,
+                                cfg.rope_theta)
+        kc, vc = cache["k"], cache["v"]
+        windows = _windows(cfg, kc.shape[2])
+        rows = torch.arange(B, device=token.device)
+        at = length.long()
+        kv_len = length + 1
+    states, convs = [], []
+    for l in range(cfg.n_layers):
+        p = layer(params, l)
+        x = rmsnorm(h, p["ln1"], cfg.rmsnorm_eps)
+        mixer = None
+        if cfg.has_attention:
+            q, k, v = project_qkv(x, p["attn"], cfg)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+            kc[l][rows, at] = k[:, 0].to(kc.dtype)
+            vc[l][rows, at] = v[:, 0].to(vc.dtype)
+            o = ops.flash_decode(
+                q[:, 0].to(torch.promote_types(q.dtype, kc.dtype))
+                .contiguous(), kc[l], vc[l], kv_len, windows[l])
+            mixer = out_proj(o[:, None], p["attn"])
+            if cfg.hybrid:
+                mixer = rmsnorm(mixer, p["attn_out_norm"], cfg.rmsnorm_eps)
+        if cfg.has_ssm:
+            s_out, (st, cv) = ssm_mod.mamba2_decode(
+                x, p["ssm"], cfg=cfg, state=cache["ssm"][l],
+                conv_state=cache["conv"][l])
+            states.append(st)
+            convs.append(cv)
+            mixer = _mix(mixer, s_out, p, cfg)
+        h = h + mixer
+        if "mlp" in p:
+            h = h + swiglu_mlp(rmsnorm(h, p["ln2"], cfg.rmsnorm_eps),
+                               p["mlp"])
+    logits = logits_of(params, cfg, h)[:, 0]
+    if cfg.has_ssm:
+        new_cache["ssm"] = torch.stack(states)
+        new_cache["conv"] = torch.stack(convs)
+    new_cache["length"] = length + 1
+    return logits, new_cache
 
 
 def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -190,9 +347,18 @@ def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
     ``page_idx[b, length // bt]`` at slot ``length % bt``, IN PLACE in the
     pools (the decode state owns them); attention then reads the first
     ``length + 1`` tokens of each sequence's pages through the paged
-    decode kernel. Returns (logits ``[B, V]``, cache with ``length + 1``).
+    decode kernel, which has no window. Returns (logits ``[B, V]``, cache
+    with ``length + 1``).
     """
     check_supported(cfg)
+    if cfg.has_ssm or not cfg.has_attention:
+        raise ValueError("paged decode carries attention KV only; use "
+                         "decode_step for SSM state")
+    max_len = cache["page_idx"].shape[1] * cache["pk"].shape[2]
+    if min(_windows(cfg, max_len)) < max_len:
+        raise NotImplementedError(
+            f"{cfg.name}: a sliding window binds at {max_len} rows and the "
+            f"paged decode kernel has no window; use decode_step")
     B = token.shape[0]
     h = params["embed"][token][:, None].to(dtype_of(cfg))
     length = cache["length"]

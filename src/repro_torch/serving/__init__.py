@@ -2,17 +2,20 @@
 tiered KV pool."""
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.kvpool import Allocation, PagedKVPool, PoolExhausted
-from repro_torch.serving.policies import (PICPolicy, PolicyRuntime,
+from repro_torch.serving.policies import (POLICIES, PICPolicy,
+                                          PolicyRuntime, RecomputePolicy,
                                           RecoveryPlan, RecoveryResult,
                                           ReusePolicy, RoundContext,
-                                          TokenDancePolicy)
+                                          TokenDancePolicy, get_policy)
 from repro_torch.serving.pool import (HostTier, PoolLedger, PoolManager,
                                       Spillable)
-from repro_torch.serving.round_kv import PagedRoundKV, round_kv
+from repro_torch.serving.round_kv import (DenseRoundKV, PagedRoundKV,
+                                          round_kv)
 from repro_torch.serving.state import RoundStats, Session
 
-__all__ = ["Allocation", "HostTier", "PICPolicy", "PagedKVPool",
-           "PagedRoundKV", "PolicyRuntime", "PoolExhausted", "PoolLedger",
-           "PoolManager", "RecoveryPlan", "RecoveryResult", "ReusePolicy",
-           "RoundContext", "RoundStats", "ServingEngine", "Session",
-           "Spillable", "TokenDancePolicy", "round_kv"]
+__all__ = ["Allocation", "DenseRoundKV", "HostTier", "POLICIES", "PICPolicy",
+           "PagedKVPool", "PagedRoundKV", "PolicyRuntime", "PoolExhausted",
+           "PoolLedger", "PoolManager", "RecomputePolicy", "RecoveryPlan",
+           "RecoveryResult", "ReusePolicy", "RoundContext", "RoundStats",
+           "ServingEngine", "Session", "Spillable", "TokenDancePolicy",
+           "get_policy", "round_kv"]

@@ -5,17 +5,23 @@ and a declarative gather topology.
 Each round the engine (1) partitions agents into gather groups from the
 topology (All-Gather = one group), then per group (2) asks the policy to
 ``plan`` (host-side; includes restores), (3) ``recover``, (4) runs the
-greedy decode over page pools, and (5) asks the policy to ``store``.
+greedy decode, and (5) asks the policy to ``store``.
 
-The engine runs on the device of its parameters. Decode is always paged
-(the dense decode oracle, the admission planner and the continuous
-engine of the JAX package are not ported yet).
+Decode runs over round page pools (``paged_decode=True``, the default)
+or over a dense ``[L, N, S+G]`` cache: the loop every SSM or hybrid model
+takes (its state is not attention KV), and the bit-exact oracle the
+paged loop is pinned against. An SSM or hybrid model is served with the
+recompute policy whatever policy is asked for: PIC-style reuse does not
+apply to SSM state.
+
+The engine runs on the device of its parameters. The admission planner
+and the continuous engine of the JAX package are not ported yet.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -27,10 +33,11 @@ from repro_torch.core.rounds import (AgentState, AllGather, AllGatherTrace,
                                      GatherTopology, Round, round_prompt)
 from repro_torch.core.segments import PromptLayout, SegmentIndex
 from repro_torch.models.layers import check_supported
-from repro_torch.models.transformer import decode_step_paged
+from repro_torch.models.transformer import decode_step, decode_step_paged
 from repro_torch.serving.kvpool import PagedKVPool
-from repro_torch.serving.policies.base import (PolicyRuntime, ReusePolicy,
-                                               RoundContext, sync)
+from repro_torch.serving.policies import (PolicyRuntime, ReusePolicy,
+                                          RoundContext, get_policy)
+from repro_torch.serving.policies.base import sync
 from repro_torch.serving.pool import PoolManager, parse_owner
 from repro_torch.serving.state import RoundStats, Session
 
@@ -42,12 +49,13 @@ class DecodeState:
 
     step: Callable                 # (tok, cache) -> (tok, cache)
     tok: torch.Tensor              # last greedy token, [N]
-    cache: dict                    # paged decode cache
+    cache: dict                    # dense or paged decode cache
     outs: list = field(default_factory=list)   # per-step tokens, [N] each
     gaids: List[str] = field(default_factory=list)
     S: int = 0                     # prompt length
     G: int = 0                     # gen_len
     bt: int = 0                    # block_tokens (page tile)
+    paged: bool = False
     t: int = 0                     # decode steps taken (of G-1)
     t0: float = 0.0
 
@@ -63,7 +71,7 @@ class ServingEngine:
         self,
         params: dict,
         cfg: ModelConfig,
-        policy: ReusePolicy,
+        policy: Union[ReusePolicy, str] = "tokendance",
         *,
         topology: Optional[GatherTopology] = None,
         gen_len: int = 32,
@@ -71,9 +79,17 @@ class ServingEngine:
         block_select: int = 32,
         check_layer: int = 1,
         pool_pages: int = 1 << 16,
+        paged_decode: bool = True,
         keep_logits: bool = False,
     ):
         check_supported(cfg)
+        if isinstance(policy, str):
+            policy = get_policy(policy)
+        if policy.requires_attention and (not cfg.has_attention
+                                          or cfg.has_ssm):
+            # PIC-style reuse is inapplicable to SSM/hybrid state; those
+            # architectures serve via full recompute
+            policy = get_policy("recompute")
         assert block_select > 0 and gen_len % block_select == 0, \
             "gen_len must be block-aligned so histories stay aligned"
         self.cfg = cfg
@@ -89,6 +105,10 @@ class ServingEngine:
         # tiered layer over the pool: family-aware eviction + an
         # unbounded host tier
         self.manager = PoolManager(self.pool, device=self.device)
+        # decode over round pool pages; False keeps the dense
+        # [L, N, S+G] decode loop, the oracle the paged loop is pinned
+        # against bit for bit
+        self.paged_decode = paged_decode
         # record per-round first-token logits on RoundStats (host copy of
         # [N, vocab] per round — parity-test food, off by default)
         self.keep_logits = keep_logits
@@ -140,46 +160,58 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def _decode_begin(self, first_logits: torch.Tensor, prefill_cache: dict,
-                      N: int, S: int, gaids: List[str]) -> DecodeState:
-        """Build the round pool from the recovered prefill KV (each
-        agent's sealed pages, then zeroed gen pages), take the first
-        greedy token from the recovery logits. The pool is a fresh tensor
-        owned by the returned state: decode steps write it in place."""
+                      N: int, S: int, gaids: List[str],
+                      use_paged: bool) -> DecodeState:
+        """Build the decode cache and take the first greedy token from the
+        recovery logits. Paged: the round pool holds each agent's sealed
+        prefill pages, then zeroed gen pages. Dense: the prefill KV padded
+        by G rows, and the SSM state as recovered. The cache is a fresh
+        tensor owned by the returned state: decode steps write it in
+        place."""
         cfg, G = self.cfg, self.gen_len
         bt = self.block_select
-        nb_s, nb_g = S // bt, G // bt
-        nbt = nb_s + nb_g
-        k, v = prefill_cache["k"], prefill_cache["v"]
-        L, _, _, KV, hd = k.shape
+        if use_paged:
+            nb_s, nb_g = S // bt, G // bt
+            nbt = nb_s + nb_g
+            k, v = prefill_cache["k"], prefill_cache["v"]
+            L, _, _, KV, hd = k.shape
 
-        def to_pool(x):
-            x = x.reshape(L, N, nb_s, bt, KV, hd)
-            x = F.pad(x, (0, 0, 0, 0, 0, 0, 0, nb_g))
-            return x.reshape(L, N * nbt, bt, KV, hd)
+            def to_pool(x):
+                x = x.reshape(L, N, nb_s, bt, KV, hd)
+                x = F.pad(x, (0, 0, 0, 0, 0, 0, 0, nb_g))
+                return x.reshape(L, N * nbt, bt, KV, hd)
 
-        cache = {
-            "pk": to_pool(k),
-            "pv": to_pool(v),
-            "page_idx": torch.arange(N * nbt, dtype=torch.int32,
-                                     device=self.device).reshape(N, nbt),
-            "length": torch.full((N,), S, dtype=torch.int32,
-                                 device=self.device),
-        }
+            cache = {
+                "pk": to_pool(k),
+                "pv": to_pool(v),
+                "page_idx": torch.arange(N * nbt, dtype=torch.int32,
+                                         device=self.device).reshape(N, nbt),
+            }
+            model_step = decode_step_paged
+        else:
+            cache = {key: F.pad(prefill_cache[key], (0, 0, 0, 0, 0, G))
+                     for key in ("k", "v") if key in prefill_cache}
+            cache.update({key: prefill_cache[key] for key in ("ssm", "conv")
+                          if key in prefill_cache})
+            model_step = decode_step
+        cache["length"] = torch.full((N,), S, dtype=torch.int32,
+                                     device=self.device)
 
         def step(tok, cache):
-            logits, cache = decode_step_paged(self.params, cfg, tok, cache)
+            logits, cache = model_step(self.params, cfg, tok, cache)
             return logits.argmax(dim=-1).to(torch.int32), cache
 
         tok = first_logits.argmax(dim=-1).to(torch.int32)
         return DecodeState(step=step, tok=tok, cache=cache, outs=[tok],
                            gaids=list(gaids), S=S, G=G, bt=bt,
-                           t0=time.perf_counter())
+                           paged=use_paged, t0=time.perf_counter())
 
     def _decode_advance(self, st: DecodeState) -> None:
-        """One greedy decode step. The write at position S+t opens a fresh
-        gen page each time generation crosses a block boundary: claim it
-        in the ledger before the step fills its first slot."""
-        if (st.S + st.t) % st.bt == 0:
+        """One greedy decode step. On the paged path, the write at
+        position S+t opens a fresh gen page each time generation crosses a
+        block boundary: claim it in the ledger before the step fills its
+        first slot."""
+        if st.paged and (st.S + st.t) % st.bt == 0:
             for a in st.gaids:
                 self.manager.append_page(f"round:{a}")
         st.tok, st.cache = st.step(st.tok, st.cache)
@@ -193,17 +225,26 @@ class ServingEngine:
         sync(self.device)
         return outs, st.cache, time.perf_counter() - st.t0
 
-    def _decode_paged(self, first_logits, prefill_cache: dict, N: int,
-                      S: int, gaids: List[str]):
-        """Greedy decode whose KV lives in round pool pages: the recovered
-        prefill KV becomes each agent's sealed pages and every generated
-        token is written into its open gen page."""
+    def _paged_decode_ok(self, prefill_cache: dict, S: int) -> bool:
+        """The paged loop carries attention KV only and needs the page
+        tile to line up with the prompt and generation lengths."""
         bt = self.block_select
-        if S % bt or self.gen_len % bt or "k" not in prefill_cache:
-            raise NotImplementedError(
-                "the dense decode loop is not ported; paged decode needs "
-                "block-aligned prompt and generation lengths")
-        st = self._decode_begin(first_logits, prefill_cache, N, S, gaids)
+        return (self.paged_decode and bt > 0
+                and "k" in prefill_cache
+                and "ssm" not in prefill_cache
+                and "conv" not in prefill_cache
+                and S % bt == 0 and self.gen_len % bt == 0)
+
+    def _decode(self, first_logits, prefill_cache: dict, N: int, S: int,
+                gaids: List[str], use_paged: bool):
+        """Greedy decode of G tokens. Paged: the KV lives in round pool
+        pages — the recovered prefill KV becomes each agent's sealed pages
+        and every generated token is written into its open gen page.
+        Dense: a padded ``[L, N, S+G]`` cache (attention KV, SSM state, or
+        both) — the loop of SSM/hybrid models and the bit-exact oracle of
+        the paged loop."""
+        st = self._decode_begin(first_logits, prefill_cache, N, S, gaids,
+                                use_paged)
         while not st.done:
             self._decode_advance(st)
         return self._decode_finish(st)
@@ -276,17 +317,21 @@ class ServingEngine:
             stats.merge_reuse("restore", rplan.restore_info)
 
         # transient working set: the restore pool claimed during plan()
-        # is reclaimed here, after its peak registered; paged decode
-        # claims the S prefill tokens and grows one page per block
-        # boundary (append_page), reaching S+G by round end
+        # is reclaimed here, after its peak registered. Dense decode
+        # claims the full S+G tokens up front; paged decode claims the S
+        # prefill tokens and grows one page per block boundary
+        # (append_page), reaching the same S+G total by round end
+        use_paged = self._paged_decode_ok(res.cache, S)
         self.manager.free_transient()
         for a in gaids:
             self.manager.free(f"round:{a}")
-            self.manager.alloc_tokens(f"round:{a}", S, persistent=False)
+            self.manager.alloc_tokens(
+                f"round:{a}", S if use_paged else S + self.gen_len,
+                persistent=False)
 
         # ---- decode -------------------------------------------------------
-        outputs, cache, dt_dec = self._decode_paged(res.logits, res.cache, N,
-                                                    S, gaids)
+        outputs, cache, dt_dec = self._decode(res.logits, res.cache, N, S,
+                                              gaids, use_paged)
         stats.t_decode += dt_dec
 
         # ---- store --------------------------------------------------------

@@ -1,9 +1,13 @@
-"""Policy-object serving API of the port."""
-from repro_torch.serving.policies.base import (PolicyRuntime, RecoveryPlan,
-                                               RecoveryResult, ReusePolicy,
-                                               RoundContext)
+"""Policy-object serving API of the port, with the registry of mode
+strings (``get_policy``) the engine also takes."""
+from repro_torch.serving.policies.base import (POLICIES, PolicyRuntime,
+                                               RecoveryPlan, RecoveryResult,
+                                               ReusePolicy, RoundContext,
+                                               get_policy, register_policy)
 from repro_torch.serving.policies.pic import PICPolicy
+from repro_torch.serving.policies.recompute import RecomputePolicy
 from repro_torch.serving.policies.tokendance import TokenDancePolicy
 
-__all__ = ["PICPolicy", "PolicyRuntime", "RecoveryPlan", "RecoveryResult",
-           "ReusePolicy", "RoundContext", "TokenDancePolicy"]
+__all__ = ["POLICIES", "PICPolicy", "PolicyRuntime", "RecomputePolicy",
+           "RecoveryPlan", "RecoveryResult", "ReusePolicy", "RoundContext",
+           "TokenDancePolicy", "get_policy", "register_policy"]

@@ -10,14 +10,16 @@ engine drives every round, per gather group:
   prefill-state cache the decode loop continues from.
 * ``store(ctx, cache, outputs, result, stats)`` — post-round storage.
 
-Policies share a :class:`PolicyRuntime` owned by the engine.
+Policies share a :class:`PolicyRuntime` owned by the engine. A registry
+(:func:`register_policy` / :func:`get_policy`) names each policy by its
+mode string, so the engine takes a policy object or its name.
 """
 from __future__ import annotations
 
 import time
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -130,6 +132,9 @@ class ReusePolicy(ABC):
     """One KV-reuse strategy: plan / recover / store (see module doc)."""
 
     name: str = "?"
+    #: PIC-style reuse needs attention KV; the engine serves an SSM or
+    #: hybrid model with the recompute policy instead
+    requires_attention: bool = False
 
     def __init__(self) -> None:
         self.rt: Optional[PolicyRuntime] = None
@@ -163,3 +168,25 @@ class ReusePolicy(ABC):
 
         (logits, cache), dt = rt.timed(("prefill", N, S), run, tokens)
         return RecoveryResult(logits, cache, dt, {})
+
+
+# --------------------------------------------------------------------------
+# Registry: mode strings -> policy classes
+# --------------------------------------------------------------------------
+POLICIES: Dict[str, Callable[..., ReusePolicy]] = {}
+
+
+def register_policy(name: str):
+    """Class decorator registering a policy under a mode string."""
+    def deco(cls):
+        cls.name = name
+        POLICIES[name] = cls
+        return cls
+    return deco
+
+
+def get_policy(name: str, **kwargs) -> ReusePolicy:
+    """Instantiate a registered policy by its mode string."""
+    if name not in POLICIES:
+        raise KeyError(f"unknown policy {name!r}; have {sorted(POLICIES)}")
+    return POLICIES[name](**kwargs)

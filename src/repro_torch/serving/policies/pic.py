@@ -1,11 +1,12 @@
-"""Cached-prompt assembly and collective recovery shared by the PIC-family
-policies, in PyTorch.
+"""CacheBlend-style per-request PIC recovery, plus the cached-prompt
+assembly shared with the collective TokenDance policy, in PyTorch.
 
-``PICPolicy`` here is the part of the JAX ``PICPolicy`` that
-``TokenDancePolicy`` inherits: shared-segment lookup, private-history
-entries, dense-vs-paged ``priv`` construction, the collective recovery
-call and the output-segment store. The per-request serial baseline is
-not ported yet, so recovery is always collective.
+``PICPolicy`` is the serial baseline (T2 in the paper's Fig. 7): N
+independent RoPE-align + selection passes per round, with each agent's
+history kept as a dense segment entry. Its ``plan`` /
+``_assemble_cached`` machinery — shared-segment lookup, private-history
+entries, dense-vs-paged ``priv`` construction — is what
+``TokenDancePolicy`` inherits and drives collectively.
 """
 from __future__ import annotations
 
@@ -20,11 +21,18 @@ from repro_torch.core.segments import (SHARED, PagedSegmentCacheEntry,
                                        SegmentCacheEntry, segment_hash)
 from repro_torch.serving.policies.base import (RecoveryPlan, RecoveryResult,
                                                ReusePolicy, RoundContext,
-                                               sync)
+                                               entry_spillable,
+                                               register_policy, sync)
+from repro_torch.serving.round_kv import round_kv
 
 
+@register_policy("pic")
 class PICPolicy(ReusePolicy):
-    """Position-independent cache recovery, driven collectively."""
+    """Per-request position-independent cache recovery (CacheBlend)."""
+
+    requires_attention = True
+    #: subclasses flip this to drive ONE grouped pass per round
+    collective = False
 
     # ------------------------------------------------------------- plan
     def plan(self, ctx: RoundContext) -> RecoveryPlan:
@@ -88,6 +96,8 @@ class PICPolicy(ReusePolicy):
         hspan = layouts[0].spans[0]
         priv_mask = np.zeros(S, bool)
         priv = None
+        for a in aids:                 # reload spilled dense histories
+            rt.manager.ensure_resident(f"hist:{a}")
         entries = [rt.sessions[a].hist_entry for a in aids]
         if all(e is not None for e in entries) and hspan.end > hspan.start:
             priv_mask[hspan.start : hspan.end] = True
@@ -160,22 +170,45 @@ class PICPolicy(ReusePolicy):
         aids, n_sel = plan.ctx.agent_ids, plan.n_sel
         (sk, sv, src, smask, priv, _, _) = plan.assembled
         N, S = tokens.shape
-        key = ("coll", N, S, n_sel)
-        if key not in rt.warm:
-            rt.collector.collective_reuse(aids, tokens, sk, sv, src, smask,
-                                          n_sel, priv)
-            rt.warm.add(key)
-        p0 = rt.collector.align_passes
-        t0 = time.perf_counter()
-        res = rt.collector.collective_reuse(aids, tokens, sk, sv, src, smask,
-                                            n_sel, priv)
-        sync(rt.device)
-        dt = time.perf_counter() - t0
-        info = {"n_sel": n_sel, "plan": res.plan,
-                "align_passes": rt.collector.align_passes - p0}
-        return RecoveryResult(res.pic.logits, {"k": res.pic.recovered_k,
-                                               "v": res.pic.recovered_v},
-                              dt, info)
+        if not self.collective and isinstance(priv, PagedPrivate):
+            # the serial baseline consumes dense priv tuples only
+            priv = priv.materialize(S)
+        if self.collective:
+            key = ("coll", N, S, n_sel)
+            if key not in rt.warm:
+                rt.collector.collective_reuse(aids, tokens, sk, sv, src,
+                                              smask, n_sel, priv)
+                rt.warm.add(key)
+            p0 = rt.collector.align_passes
+            t0 = time.perf_counter()
+            res = rt.collector.collective_reuse(aids, tokens, sk, sv, src,
+                                                smask, n_sel, priv)
+            sync(rt.device)
+            dt = time.perf_counter() - t0
+            k, v, logits = (res.pic.recovered_k, res.pic.recovered_v,
+                            res.pic.logits)
+            info = {"n_sel": n_sel, "plan": res.plan,
+                    "align_passes": rt.collector.align_passes - p0}
+        else:
+            key = ("serial", S, n_sel)
+            if key not in rt.warm:
+                rt.collector.serial_reuse(
+                    aids[:1], tokens[:1], sk, sv, src, smask, n_sel,
+                    None if priv is None else tuple(
+                        x[:1] if i < 3 else x for i, x in enumerate(priv)))
+                rt.warm.add(key)
+            p0 = rt.collector.align_passes
+            t0 = time.perf_counter()
+            results = rt.collector.serial_reuse(aids, tokens, sk, sv, src,
+                                                smask, n_sel, priv)
+            sync(rt.device)
+            dt = time.perf_counter() - t0
+            k = torch.cat([r.recovered_k for r in results], dim=1)
+            v = torch.cat([r.recovered_v for r in results], dim=1)
+            logits = torch.cat([r.logits for r in results], dim=0)
+            info = {"n_sel": n_sel,
+                    "align_passes": rt.collector.align_passes - p0}
+        return RecoveryResult(logits, {"k": k, "v": v}, dt, info)
 
     # ------------------------------------------------------------- store
     def _store_output_segments(self, ctx: RoundContext, kv,
@@ -191,3 +224,35 @@ class PICPolicy(ReusePolicy):
                 sid=sid, k=ok[:, i].contiguous(), v=ov[:, i].contiguous(),
                 src_pos=np.arange(S, S + G, dtype=np.int32),
                 producer=a, round_idx=ctx.round_idx))
+
+    def store(self, ctx: RoundContext, cache: dict, outputs: np.ndarray,
+              result: RecoveryResult, stats) -> None:
+        kv = round_kv(cache)
+        if kv is None:
+            return
+        rt = self.rt
+        S, G = ctx.prompt_len, rt.gen_len
+        hspan = ctx.layouts[0].spans[0]
+        self._store_output_segments(ctx, kv, outputs)
+        # CacheBlend keeps dense segment entries per agent; only the kept
+        # regions (history span + output block) are ever gathered dense
+        hk_all, hv_all = kv.slice(hspan.start, hspan.end)
+        ok_all, ov_all = kv.slice(S, S + G)
+        for i, a in enumerate(ctx.agent_ids):
+            hk = torch.cat([hk_all[:, i], ok_all[:, i]], dim=1)
+            hv = torch.cat([hv_all[:, i], ov_all[:, i]], dim=1)
+            sp = np.concatenate([
+                np.arange(hspan.start, hspan.end, dtype=np.int32),
+                np.arange(S, S + G, dtype=np.int32)])
+            rt.sessions[a].hist_entry = SegmentCacheEntry(
+                sid=f"hist:{a}:{ctx.round_idx}", k=hk, v=hv, src_pos=sp,
+                producer=a, round_idx=ctx.round_idx)
+            rt.manager.free(f"hist:{a}")
+            rt.manager.alloc_tokens(f"hist:{a}", hk.shape[1], persistent=True,
+                                    spillable=entry_spillable(
+                                        rt.sessions[a].hist_entry))
+            rt.manager.free(f"out:{a}")
+            rt.manager.alloc_tokens(f"out:{a}", G, persistent=True,
+                                    spillable=entry_spillable(
+                                        rt.segment_index.get(
+                                            segment_hash(outputs[i]))))

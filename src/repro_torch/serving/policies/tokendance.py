@@ -26,7 +26,8 @@ from repro_torch.core.restore import (family_pool_pages,
                                       fused_restore_family_shared)
 from repro_torch.core.segments import PagedSegmentCacheEntry, segment_hash
 from repro_torch.serving.policies.base import (RecoveryResult, RoundContext,
-                                               entry_spillable)
+                                               entry_spillable,
+                                               register_policy)
 from repro_torch.serving.policies.pic import PICPolicy
 from repro_torch.serving.pool import Spillable
 from repro_torch.serving.round_kv import round_kv
@@ -57,6 +58,7 @@ def _mirrors_spillable(handles: list) -> Spillable:
     return Spillable(get, put)
 
 
+@register_policy("tokendance")
 class TokenDancePolicy(PICPolicy):
     """Collective reuse + Master-Mirror storage + page-sharing restore.
 
@@ -68,7 +70,7 @@ class TokenDancePolicy(PICPolicy):
     restore is ported.
     """
 
-    name = "tokendance"
+    collective = True
 
     def __init__(self, incremental: bool = False) -> None:
         super().__init__()

@@ -1,12 +1,14 @@
-"""Round-KV view over the paged decode loop's cache.
+"""Round-KV views: uniform slicing over the decode loop's two cache forms.
 
-The paged decode hands ``store()`` its round pool (``pk``/``pv``
-``[L, P, bt, KV, hd]``) plus the per-sequence page table ``page_idx``
-``[N, nbt]``. Policies extract block-aligned regions — the history span,
+The decode loop hands ``store()`` either a dense cache (``k``/``v``
+``[L, N, S+G, KV, hd]`` — SSM/hybrid architectures and
+``paged_decode=False``) or a paged one (round pool ``pk``/``pv``
+``[L, P, bt, KV, hd]`` plus the per-sequence page table ``page_idx``
+``[N, nbt]``). Policies extract block-aligned regions — the history span,
 the output block, the prefill region — through :func:`round_kv`, whose
-``slice(lo, hi)`` gathers exactly that region as dense
-``[L, N, hi-lo, KV, hd]`` rows (a copy: nothing downstream holds a view
-of the round pool).
+``slice(lo, hi)`` returns exactly that region as dense
+``[L, N, hi-lo, KV, hd]`` rows, a copy in both forms: nothing downstream
+holds a view of the round cache.
 """
 from __future__ import annotations
 
@@ -14,6 +16,21 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+
+
+@dataclass
+class DenseRoundKV:
+    """View over a dense round cache ``k``/``v`` [L, N, total, KV, hd]."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @property
+    def total(self) -> int:
+        return int(self.k.shape[2])
+
+    def slice(self, lo: int, hi: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.k[:, :, lo:hi].clone(), self.v[:, :, lo:hi].clone()
 
 
 @dataclass
@@ -50,8 +67,10 @@ class PagedRoundKV:
 
 
 def round_kv(cache: dict):
-    """Wrap a paged decode cache in its view, or ``None`` when the cache
-    carries no paged attention KV."""
+    """Wrap a decode-loop cache in the matching view, or ``None`` when the
+    cache carries no attention KV (SSM-only architectures)."""
+    if "k" in cache:
+        return DenseRoundKV(cache["k"], cache["v"])
     if "pk" in cache:
         return PagedRoundKV(cache["pk"], cache["pv"], cache["page_idx"])
     return None

@@ -249,7 +249,7 @@ def test_gpu_block_diff(cuda, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", GPU_DTYPES)
-@pytest.mark.parametrize("H,KV,hd", [(28, 4, 128), (8, 2, 32)])
+@pytest.mark.parametrize("H,KV,hd", [(28, 4, 128), (8, 2, 32), (25, 5, 64)])
 def test_gpu_flash_attention(cuda, dtype, H, KV, hd):
     g = torch.Generator(device=cuda).manual_seed(2)
     B, S = 2, 150
@@ -262,9 +262,14 @@ def test_gpu_flash_attention(cuda, dtype, H, KV, hd):
     kv_len = torch.tensor([S, 100], device=cuda, dtype=torch.int32)
     for qq, qp, kl in ((q, full.contiguous(), None),
                        (q[:, :64].contiguous(), sel, kv_len)):
-        _close(ops.flash_attention(qq, k, v, q_pos=qp, window=S, kv_len=kl),
-               ref.flash_attention_ref(qq, k, v, q_pos=qp, window=S,
-                                       kv_len=kl), dtype)
+        # window 60 binds from position 60 on, and every selected row
+        # keeps an allowed column below kv_len 100 (a row with none is
+        # undefined: each version averages over the columns it visits)
+        for w in (S, 60):
+            _close(ops.flash_attention(qq, k, v, q_pos=qp, window=w,
+                                       kv_len=kl),
+                   ref.flash_attention_ref(qq, k, v, q_pos=qp, window=w,
+                                           kv_len=kl), dtype)
 
 
 @pytest.mark.gpu

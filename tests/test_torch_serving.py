@@ -159,8 +159,9 @@ def served_bf16():
     choices = []        # (round, step, own greedy tokens [N], logits [N, V])
     begin = teng._decode_begin
 
-    def forced_begin(first_logits, cache, N, S, gaids):
-        st = begin(first_logits, cache, N, S, gaids)
+    def forced_begin(first_logits, cache, N, S, gaids, use_paged):
+        assert use_paged
+        st = begin(first_logits, cache, N, S, gaids, use_paged)
         r = teng.round_idx
         want = torch.as_tensor(js[r].outputs, dtype=torch.int32)
         choices.append((r, 0, st.tok, first_logits.float()))
