@@ -4,23 +4,37 @@
 
 Phases (each prints its lines; any failure exits non-zero):
   1. the card (``nvidia-smi`` name and power limit, torch's device name);
-  2. the build of the seven CUDA kernels from the six sources of
+  2. the build of the eight CUDA kernels from the seven sources of
      ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at
      once), with ptxas' registers, shared memory and spills;
   3. the main path: Qwen2.5-7B at full width (28 layers, bf16, random
-     weights from seed 0) served by ``ServingEngine`` +
-     ``TokenDancePolicy(incremental=False)`` on the 8-agent, 3-round
-     ``agent_society`` trace. Kernel launch counts are zeroed just before
-     and read just after; every kernel must have launched and no plain
-     version may have run. Inputs of each kernel's largest call are kept.
-     Then [dense]: the same weights and trace with ``paged_decode=False``
-     (the dense decode loop, counts zeroed before and read after):
-     ``flash_decode`` launched, ``flash_decode_paged`` did not, and the
-     outputs and first-token logits are bit-equal to the paged run;
+     weights from seed 0) served by ``ServingEngine(params, cfg)`` with its
+     defaults — ``TokenDancePolicy()``, whose cross-round page pool makes
+     round 2's restore write only the round delta — on the 8-agent,
+     3-round ``agent_society`` trace. Kernel launch counts are zeroed just
+     before and read just after; every kernel of the path must have
+     launched and no plain version may have run. Inputs of each kernel's
+     largest call are kept, and so is the paged history round 2 hands to
+     the collector (``PagedPrivate``: the pool, 8 page tables, the tails).
+     Then [full]: ``TokenDancePolicy(incremental=False)`` on the same
+     weights and trace — outputs, first-token logits and persistent bytes
+     bit-equal to the main path, more restore pages in round 2. Then
+     [dense]: the default policy with ``paged_decode=False`` (the dense
+     decode loop): ``flash_decode`` launched, ``flash_decode_paged`` did
+     not, everything bit-equal to the main path;
   4. each kernel against its plain PyTorch version on those main-path
      inputs (bf16, and cast to f32) and on edge cases, with CUDA-event
      times of kernel, plain version and one PyTorch library call;
-  5. [hybrid] Hymba-1.5B at full width (32 layers, bf16, random weights
+  5. [paged_prefill] ``flash_prefill_paged`` over the main path's round-2
+     history pool, one causal launch per layer (28, counts zeroed before
+     and read after), at Qwen2.5-7B heads (28 over 4, head dim 128, pages
+     of 32) with q from a seeded generator; per layer bit-equal to the
+     dense prefill kernel on the gathered stream and within tolerance of
+     the plain version, then on the same pages with the span cut by 5
+     tokens, with a binding window and with half of every table aliasing
+     table 0's pages, in f32 (the pool's dtype) and on a bf16 copy; CUDA-event times of the kernel, the dense kernel on the
+     gathered rows, the plain version and SDPA over the gathered rows;
+  6. [hybrid] Hymba-1.5B at full width (32 layers, bf16, random weights
      from seed 0) served by ``ServingEngine(params, cfg, "tokendance")``
      on the same trace: the engine falls back to the recompute policy and
      the dense decode loop; counts zeroed before and read after,
@@ -33,10 +47,10 @@ Phases (each prints its lines; any failure exits non-zero):
      the dense Qwen path's (f32), at Sk 1536 with a binding window of 1024
      and ragged lengths, and bit-equal to the paged kernel on identical
      KV; CUDA-event times of kernel, plain version and SDPA with a mask;
-  6. the f32 smoke configurations (Qwen2.5-7B with TokenDance, Hymba-1.5B
+  7. the f32 smoke configurations (Qwen2.5-7B with TokenDance, Hymba-1.5B
      with its recompute fallback) served on the card against the same
      engine on the CPU: greedy tokens equal, logits within atol 1e-3;
-  7. [restore] the storage walkthrough
+  8. [restore] the storage walkthrough
      (``repro_torch.examples.compression_demo.walkthrough``) at Qwen2.5-7B
      full width (28 layers, bf16 weights, random from seed 0): 8 agents,
      private prefix 32, one 128-token shared block each (S 1056, nb 33),
@@ -73,6 +87,7 @@ REPLACES = {
     "rope_align": "src/repro/kernels/rope_align.py:47",
     "block_diff": "src/repro/kernels/block_diff.py:43",
     "flash_prefill": "src/repro/kernels/flash_prefill.py:130",
+    "flash_prefill_paged": "src/repro/kernels/flash_prefill.py:272",
     "flash_decode_paged": "src/repro/kernels/flash_decode.py:231",
     "flash_decode": "src/repro/kernels/flash_decode.py:101",
     "fused_diff_restore": "src/repro/kernels/diff_restore.py:116",
@@ -209,8 +224,44 @@ class Recorder:
             setattr(self.ops, name, fn)
 
 
+def restore_line(rs):
+    """The counted restore work of one round's ledger."""
+    if not rs:
+        return "no restore"
+    return (f"restore pages {rs['pool_pages']} of {rs['full_write_pages']} "
+            f"unshared (incremental {rs['incremental']}, reused "
+            f"{rs.get('pages_reused', 0)}, new span "
+            f"{rs.get('new_span_pages', 0)}, cow {rs.get('cow_pages', 0)}, "
+            f"grown {rs.get('grown_pages', 0)})")
+
+
+def serve_phase(tag, engine, trace, ops):
+    """Serve the trace with the launch counts zeroed just before and read
+    just after; returns (stats, launches, plain calls, wall s, kept)."""
+    with Recorder(ops) as rec:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        stats = engine.serve(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        plain = dict(ops.PLAIN_CALLS)
+    for st in stats:
+        say(f"[{tag}] round {st.round_idx}: prompt {st.prompt_len}, round "
+            f"{st.t_round * 1e3:.1f} ms (recover {st.t_recover * 1e3:.1f}, "
+            f"restore {st.t_restore * 1e3:.3f}, decode "
+            f"{st.t_decode * 1e3:.1f}, store {st.t_store * 1e3:.1f}), "
+            f"{restore_line(st.reuse.get('restore'))}, persistent "
+            f"{st.persistent_bytes} B")
+    say(f"[{tag}] serve {wall:.2f} s; launches {launches}  plain-version "
+        f"calls {plain}")
+    assert not any(plain.values()), f"plain versions ran: {plain}"
+    return stats, launches, rec.kept
+
+
 def main_path(dev):
     from repro_torch.configs import get_config
+    from repro_torch.core.collector import PagedPrivate
     from repro_torch.core.rounds import generate_trace
     from repro_torch.kernels import ops
     from repro_torch.models import init_params
@@ -229,29 +280,29 @@ def main_path(dev):
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
     trace = generate_trace("agent_society", 8, 3, cfg.vocab_size, seed=0,
                            jitter_hist=False)
-    engine = ServingEngine(params, cfg, TokenDancePolicy(incremental=False),
-                           keep_logits=True)
+    engine = ServingEngine(params, cfg, keep_logits=True)
+    pol = engine.policy
+    assert isinstance(pol, TokenDancePolicy) and pol.incremental and \
+        pol.paged_history and pol.paged_attention, pol
+    # the paged history round 2 hands to the collector (its last call of
+    # the round; the first is the untimed warm-up of a new shape)
+    captured = {}
+    reuse = engine.collector.collective_reuse
+
+    def spy(*args, **kw):
+        priv = args[7] if len(args) > 7 else kw.get("priv")
+        if engine.round_idx == 2 and isinstance(priv, PagedPrivate):
+            captured["priv"] = priv
+        return reuse(*args, **kw)
+
+    engine.collector.collective_reuse = spy
     torch.cuda.reset_peak_memory_stats()
-    with Recorder(ops) as rec:
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        stats = engine.serve(trace)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(ops.LAUNCHES)
-        plain = dict(ops.PLAIN_CALLS)
+    stats, launches, kept = serve_phase("main", engine, trace, ops)
+    del engine.collector.collective_reuse     # the spy holds the engine
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for st in stats:
         rs = st.reuse.get("restore", {})
         comp = st.reuse.get("compression", {})
-        say(f"[main] round {st.round_idx}: prompt {st.prompt_len}, "
-            f"round {st.t_round * 1e3:.1f} ms (recover "
-            f"{st.t_recover * 1e3:.1f}, restore {st.t_restore * 1e3:.1f}, "
-            f"decode {st.t_decode * 1e3:.1f}, store {st.t_store * 1e3:.1f}), "
-            f"restore pool pages {rs.get('pool_pages', 0)} of "
-            f"{rs.get('full_write_pages', 0)} unshared, compression "
-            f"{comp.get('compression_ratio', float('nan')):.3f}, "
-            f"persistent {st.persistent_bytes} B")
         assert st.outputs.shape == (8, engine.gen_len), st.outputs.shape
         assert ((st.outputs >= 0) & (st.outputs < cfg.vocab_size)).all()
         assert np.isfinite(st.first_logits).all(), st.round_idx
@@ -261,45 +312,54 @@ def main_path(dev):
             # (round 0's prompts share nothing)
             assert comp["compression_ratio"] > 1.0, comp
             assert 0 < rs["pool_pages"] <= rs["full_write_pages"], rs
-    say(f"[main] serve {wall:.2f} s for {len(stats)} rounds, peak device "
-        f"memory {peak:.2f} GiB")
-    say(f"[main] launches {launches}  plain-version calls {plain}")
+    r2 = stats[2].reuse["restore"]
+    assert r2["incremental"] is True and r2["pages_reused"] > 0 and \
+        r2["pool_pages"] < r2["full_write_pages"], r2
+    say(f"[main] peak device memory {peak:.2f} GiB; round 2 restored "
+        f"incrementally: {r2['pool_pages']} pages written, "
+        f"{r2['pages_reused']} reused, of {r2['full_write_pages']} unshared")
     missing = [k for k in ("rope_align", "block_diff", "flash_prefill",
                            "flash_decode_paged") if launches[k] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
-    assert not any(plain.values()), f"plain versions ran: {plain}"
+    priv = captured["priv"]
+    assert priv.fast_path_ok(), "round 2's paged history is not paged"
     del engine
-    kept = rec.kept
+
+    def same(tag, other):
+        for st, os_ in zip(stats, other):
+            assert np.array_equal(os_.outputs, st.outputs), (tag,
+                                                             st.round_idx)
+            assert np.array_equal(os_.first_logits, st.first_logits), \
+                (tag, st.round_idx)
+            assert os_.persistent_bytes == st.persistent_bytes, \
+                (tag, st.round_idx)
+        say(f"[{tag}] outputs, first-token logits and persistent bytes "
+            f"bit-equal to the main path in all {len(other)} rounds")
+
+    # [full]: the same weights and trace, every family rebuilt each round
+    engine = ServingEngine(params, cfg, TokenDancePolicy(incremental=False),
+                           keep_logits=True)
+    full, _, _ = serve_phase("full", engine, trace, ops)
+    same("full", full)
+    f2 = full[2].reuse["restore"]
+    assert f2["incremental"] is False and f2["pool_pages"] > r2["pool_pages"]
+    say(f"[full] round 2: {f2['pool_pages']} restore pages written in "
+        f"{full[2].t_restore * 1e3:.3f} ms against the main path's "
+        f"{r2['pool_pages']} in {stats[2].t_restore * 1e3:.3f} ms; round 1 "
+        f"(both full): {full[1].t_restore * 1e3:.3f} / "
+        f"{stats[1].t_restore * 1e3:.3f} ms")
+    del engine
 
     # [dense]: the same weights and trace through the dense decode loop
-    engine = ServingEngine(params, cfg, TokenDancePolicy(incremental=False),
-                           paged_decode=False, keep_logits=True)
-    with Recorder(ops) as rec:
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        dense = engine.serve(trace)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        dlaunches = dict(ops.LAUNCHES)
-        plain = dict(ops.PLAIN_CALLS)
-    for st, ds in zip(stats, dense):
-        say(f"[dense] round {ds.round_idx}: round {ds.t_round * 1e3:.1f} ms "
-            f"(recover {ds.t_recover * 1e3:.1f}, decode "
-            f"{ds.t_decode * 1e3:.1f}, store {ds.t_store * 1e3:.1f})")
-        assert np.array_equal(ds.outputs, st.outputs), ds.round_idx
-        assert np.array_equal(ds.first_logits, st.first_logits), ds.round_idx
-        assert ds.persistent_bytes == st.persistent_bytes, ds.round_idx
-    say(f"[dense] serve {wall:.2f} s; outputs, first-token logits and "
-        f"persistent bytes bit-equal to the paged run in all "
-        f"{len(dense)} rounds")
-    say(f"[dense] launches {dlaunches}  plain-version calls {plain}")
+    engine = ServingEngine(params, cfg, paged_decode=False, keep_logits=True)
+    dense, dlaunches, dkept = serve_phase("dense", engine, trace, ops)
+    same("dense", dense)
     assert dlaunches["flash_decode"] > 0 and \
         dlaunches["flash_decode_paged"] == 0, dlaunches
-    assert not any(plain.values()), f"plain versions ran: {plain}"
-    kept["flash_decode_dense"] = rec.kept["flash_decode"]
+    kept["flash_decode_dense"] = dkept["flash_decode"]
     del engine, params
     torch.cuda.empty_cache()
-    return launches, kept
+    return launches, kept, priv, cfg.n_heads
 
 
 # ------------------------------------------------------------- phase 4
@@ -455,6 +515,136 @@ def kernels(dev, launches, kept):
     for r in rows:
         r["launches"] = launches[r["name"]]
     return table_rows(rows)
+
+
+def paged_prefill(dev, priv, H):
+    """``flash_prefill_paged`` over the main path's round-2 history pool:
+    one causal launch per layer (the path; counts zeroed before, read
+    after), then the checks and times. Returns its kernel-table row."""
+    from repro_torch.kernels import ops, ref
+
+    L, P, bt, KV, hd = priv.pool_k.shape
+    pidx = priv.page_idx.contiguous()
+    B, nbh = pidx.shape
+    span, T = priv.span_len, priv.tail_len
+    S = span + T
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(B, S, H, hd, generator=g, device=dev)
+
+    def layer(l, dt=None):
+        x = (priv.pool_k[l], priv.pool_v[l],
+             None if T == 0 else priv.tail_k[:, l].contiguous(),
+             None if T == 0 else priv.tail_v[:, l].contiguous())
+        return tuple(None if t is None else t.to(dt or t.dtype) for t in x)
+
+    aliased = int(B * nbh - torch.unique(pidx).numel())
+    say(f"[paged_prefill] round-2 history pool: {P} pages of {bt} over "
+        f"{L} layers ({priv.pool_k.dtype}), {B} tables of {nbh} pages "
+        f"({aliased} entries alias a page another entry holds), span "
+        f"{span}, tails of {T}; q [{B},{S},{H},{hd}] from seed 2")
+    ops.reset_launches()
+    q = q.to(priv.pool_k.dtype)
+    outs = [ops.flash_prefill_paged(q, pk, pv, pidx, tk, tv, span_len=span)
+            for pk, pv, tk, tv in (layer(l) for l in range(L))]
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["flash_prefill_paged"]
+    plain = dict(ops.PLAIN_CALLS)
+    say(f"[paged_prefill] launches {dict(ops.LAUNCHES)}  plain-version "
+        f"calls {plain}")
+    assert launches == L, launches
+    assert not any(plain.values()), plain
+
+    pos = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S)
+    pos = pos.contiguous()
+    # the same pages with the first half of every table aliasing table 0's
+    # (the family case: clean mirror blocks on the Master's pages)
+    alias = pidx.clone()
+    alias[1:, : nbh // 2] = pidx[0, : nbh // 2]
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        qq = q.to(dt)
+        for case, cut, window, tab in (("aligned", 0, 0, pidx),
+                                       ("ragged", 5, 0, pidx),
+                                       ("window", 0, 100, pidx),
+                                       ("aliased", 0, 0, alias)):
+            sp, Sq = span - cut, S - cut
+            qc = qq[:, :Sq].contiguous()
+            worst = 0.0
+            for l in range(L):
+                pk, pv, tk, tv = layer(l, dt)
+                got = ops.flash_prefill_paged(qc, pk, pv, tab, tk, tv,
+                                              span_len=sp, window=window)
+                if case == "aligned" and dt == priv.pool_k.dtype:
+                    assert torch.equal(got, outs[l]), l
+                kd, vd = ref.paged_kv_ref(pk, pv, tab, tk, tv, sp)
+                dense = ops.flash_attention(
+                    qc, kd.contiguous(), vd.contiguous(),
+                    q_pos=pos[:, :Sq].contiguous(),
+                    window=window or 2 ** 31 - 1)
+                assert torch.equal(got, dense), (case, dt, l,
+                                                 "paged != dense kernel")
+                worst = max(worst, check(
+                    "flash_prefill_paged", got, ref.flash_attention_paged_ref(
+                        qc, pk, pv, tab, tk, tv, span_len=sp,
+                        window=window), dt))
+            errs[(case, dt)] = worst
+            say(f"[paged_prefill] {case} (span {sp}, window "
+                f"{window or 'none'}) {dt}: bit-equal to the dense kernel on "
+                f"the gathered stream in all {L} layers, max abs err "
+                f"{worst:.3g} against the plain version")
+
+    # times at layer 0, f32 (the pool's dtype) and a bf16 copy
+    timer = Timer(dev)
+    times = {}
+    for dt in (torch.float32, torch.bfloat16):
+        qq = q.to(dt)
+        pk, pv, tk, tv = layer(0, dt)
+        kd, vd = ref.paged_kv_ref(pk, pv, pidx, tk, tv, span)
+        kd, vd = kd.contiguous(), vd.contiguous()
+        qt, kt, vt = qq.transpose(1, 2), kd.transpose(1, 2), \
+            vd.transpose(1, 2)
+        # each input read once: q, the distinct pages the tables name, the
+        # tails and the table; the output written once. Operations: the
+        # two products over the allowed (query, column) pairs, causal
+        pages = torch.unique(pidx).numel()
+        n_bytes = (nbytes(qq, tk, tv, pidx) + nbytes(qq)
+                   + 2 * pages * bt * KV * hd * pk.element_size())
+        flops = 4 * hd * H * B * S * (S + 1) // 2
+        bms, by = bound(n_bytes, flops, dt)
+        t = [timer(f) for f in (
+            lambda: ops.flash_prefill_paged(qq, pk, pv, pidx, tk, tv,
+                                            span_len=span),
+            lambda: ops.flash_attention(qq, kd, vd, q_pos=pos,
+                                        window=2 ** 31 - 1),
+            lambda: ops.flash_attention(qq, kd, vd, q_pos=pos,
+                                        window=2 ** 31 - 1),
+            lambda: ops.flash_prefill_paged(qq, pk, pv, pidx, tk, tv,
+                                            span_len=span))]
+        times[dt] = dict(
+            ms=statistics.median((t[0], t[3])), dense=(t[1], t[2]),
+            paged=(t[0], t[3]),
+            plain_ms=timer(lambda: ref.flash_attention_paged_ref(
+                qq, pk, pv, pidx, tk, tv, span_len=span)),
+            library_ms=timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            bound_ms=bms, bound_by=by)
+        tm = times[dt]
+        say(f"[kernel] flash_prefill_paged {dt}, q [{B},{S},{H},{hd}] over "
+            f"{nbh} pages + {T} tail rows a sequence: paged "
+            f"{tm['paged'][0]:.4f} / {tm['paged'][1]:.4f} ms, dense kernel "
+            f"on the gathered rows {tm['dense'][0]:.4f} / "
+            f"{tm['dense'][1]:.4f} ms (in turns paged, dense, dense, paged), "
+            f"plain {tm['plain_ms']:.4f}, SDPA over the gathered rows "
+            f"{tm['library_ms']:.4f}, bound {bms:.4f} by {by}")
+    dt = priv.pool_k.dtype
+    tm = times[dt]
+    return dict(
+        name="flash_prefill_paged", shape=[B, S, H, hd, nbh, bt, T],
+        max_abs_err=errs[("aligned", dt)],
+        max_abs_err_f32=errs[("aligned", torch.float32)],
+        ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"],
+        bound_by=tm["bound_by"], library_ms=tm["library_ms"],
+        launches=launches)
 
 
 def table_rows(rows):
@@ -908,8 +1098,10 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = card()
     build()
-    launches, kept = main_path(dev)
+    launches, kept, priv, n_heads = main_path(dev)
     table = kernels(dev, launches, kept)
+    table += table_rows([paged_prefill(dev, priv, n_heads)])
+    del priv
     hlaunches, hkept = hybrid(dev)
     hybrid_prefill(dev, hkept)
     table += table_rows([decode_kernel(dev, hlaunches, hkept,

@@ -1,8 +1,8 @@
 """Run ``chip_smoke.py``'s main path — the kernel build, then Qwen2.5-7B
 served by ``ServingEngine`` + ``TokenDancePolicy`` on the 8-agent,
 3-round trace — from several checkouts in turn on one card, and print
-each run's per-round recover ms, serve seconds and peak device memory as
-one JSON line.
+each run's per-round recover, restore and decode ms, serve seconds and
+peak device memory (its ``[main]`` lines) as one JSON line.
 
     python3 scripts/ab_main_path.py PARENT . . PARENT
 
@@ -28,15 +28,18 @@ def run(root: str) -> dict:
     if out.returncode != 0:
         raise RuntimeError(f"{root}: rc {out.returncode}\n{text[-3000:]}\n"
                            f"{out.stderr[-3000:]}")
-    peak = re.search(r"serve ([0-9.]+) s for \d+ rounds, peak device "
-                     r"memory ([0-9.]+) GiB", text)
+    main = "\n".join(line for line in text.splitlines()
+                     if line.startswith("[main]"))
     return {"root": root,
             "recover_ms": [float(x) for x in
-                           re.findall(r"\(recover ([0-9.]+)", text)],
+                           re.findall(r"\(recover ([0-9.]+)", main)],
+            "restore_ms": [float(x) for x in
+                           re.findall(r"restore ([0-9.]+), decode", main)],
             "decode_ms": [float(x) for x in
-                          re.findall(r"decode ([0-9.]+), store", text)],
-            "serve_s": float(peak.group(1)),
-            "peak_gib": float(peak.group(2))}
+                          re.findall(r"decode ([0-9.]+), store", main)],
+            "serve_s": float(re.search(r"serve ([0-9.]+) s", main).group(1)),
+            "peak_gib": float(re.search(r"peak device memory ([0-9.]+) GiB",
+                                        main).group(1))}
 
 
 def main() -> int:

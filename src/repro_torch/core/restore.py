@@ -24,10 +24,10 @@ pure data movement (``index_copy_``), as the JAX engine's
 
 The paged paths write IN PLACE into the pools they are given (the
 caller owns them; the JAX paths return updated copies). The page-sharing
-mode writes only into a pool it has just allocated
-(:func:`_shared_build`) and has not handed to any reader yet: once
-returned, a pool is only read (``PagedSegmentCacheEntry`` references it
-for the round), so no reader can see a later write.
+mode writes into a pool it has just allocated (:func:`_shared_build`),
+or, for the cross-round restore pool's delta, into pages of a provided
+pool that no live reader names (``serving/pool/histpool.py`` says why
+that holds).
 """
 from __future__ import annotations
 
@@ -214,19 +214,25 @@ def family_pool_pages(handles) -> int:
     return nb + len(handles) * ndb
 
 
-def fused_restore_family_shared(handles, *, master_map=None, diff_maps=None,
+def fused_restore_family_shared(handles, pool_k: Optional[torch.Tensor] = None,
+                                pool_v: Optional[torch.Tensor] = None, *,
+                                master_map=None, diff_maps=None,
                                 n_pages: Optional[int] = None):
-    """Page-sharing family restore for aligned frames (in-family mirrors)
-    into a fresh pool. Returns ``(pool_k, pool_v, page_idx)``;
-    ``page_idx`` int32 [M, nb] maps each mirror's logical block to its
-    pool page, so gathering ``pool[:, page_idx[m]]`` gives mirror m.
+    """Page-sharing family restore for aligned frames (in-family mirrors).
+    Returns ``(pool_k, pool_v, page_idx)``; ``page_idx`` int32 [M, nb]
+    maps each mirror's logical block to its pool page, so gathering
+    ``pool[:, page_idx[m]]`` gives mirror m.
 
     ``master_map`` int32 [nb] and ``diff_maps`` int32 [M, ndb] are the
     destination pages, disjoint (defaults: ``[0, nb)`` for the Master,
-    ``[nb, nb + M*ndb)`` for the diffs). ``n_pages`` sizes the pool (the
-    pool manager's grant); it must cover every mapped page. The check is
-    explicit: an out-of-range page must fail here, whatever a scatter
-    would do with it.
+    ``[nb, nb + M*ndb)`` for the diffs).
+
+    Omit ``pool_k``/``pool_v`` to get a fresh zeroed pool; ``n_pages``
+    sizes it (the pool manager's grant) and must cover every mapped page.
+    Given pools are written IN PLACE (the cross-round restore pool's
+    delta launch) and must be large enough for the maps. Both checks run
+    on the host before the write: an out-of-range page must fail here,
+    since a CUDA scatter would write outside the pool.
     """
     assert handles, "empty family"
     for h in handles:
@@ -246,19 +252,28 @@ def fused_restore_family_shared(handles, *, master_map=None, diff_maps=None,
     master_map = np.asarray(master_map, np.int32)
     diff_maps = np.asarray(diff_maps, np.int32)
     n_addr = int(max(master_map.max(), diff_maps.max())) + 1
-    if n_pages is not None:
-        assert n_pages >= n_addr, \
-            (n_pages, n_addr, "n_pages smaller than the page maps "
-             "address — size the grant with family_pool_pages()")
+    assert int(min(master_map.min(), diff_maps.min())) >= 0, \
+        "negative page in the maps"
     dev = mk.device
 
     def idx(a):
         return torch.as_tensor(a, dtype=torch.long, device=dev)
 
-    pool_k, pool_v = _shared_build(
-        mk.reshape(L, nb, bt, KV, hd), mv.reshape(L, nb, bt, KV, hd),
-        pack.diff_k, pack.diff_v, idx(master_map), idx(diff_maps),
-        n_pages=n_addr if n_pages is None else int(n_pages))
+    args = (mk.reshape(L, nb, bt, KV, hd), mv.reshape(L, nb, bt, KV, hd),
+            pack.diff_k, pack.diff_v, idx(master_map), idx(diff_maps))
+    if pool_k is None:
+        if n_pages is not None:
+            assert n_pages >= n_addr, \
+                (n_pages, n_addr, "n_pages smaller than the page maps "
+                 "address — size the grant with family_pool_pages()")
+        pool_k, pool_v = _shared_build(
+            *args, n_pages=n_addr if n_pages is None else int(n_pages))
+    else:
+        assert pool_k.shape[1] >= n_addr and pool_v.shape[1] >= n_addr, \
+            (tuple(pool_k.shape), tuple(pool_v.shape),
+             "pool smaller than the page maps address — "
+             "size it with family_pool_pages()")
+        pool_k, pool_v = _shared_scatter(*args, pool_k, pool_v)
     slot = pack.diff_slot                                    # [M, nb]
     page_idx = np.where(
         slot >= 0,

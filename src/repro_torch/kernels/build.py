@@ -20,8 +20,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("rope_align", "block_diff", "flash_prefill", "flash_decode_paged",
-           "flash_decode", "diff_restore")
+SOURCES = ("rope_align", "block_diff", "flash_prefill", "flash_prefill_paged",
+           "flash_decode_paged", "flash_decode", "diff_restore")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +41,8 @@ SIGNATURES = {
     "flash_prefill": ("flash_prefill_launch",
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _F, _I, _P]),
+    "flash_prefill_paged": ("flash_prefill_paged_launch",
+                            [_P] * 8 + [_I] * 11 + [_F, _I, _P]),
     "flash_decode_paged": ("flash_decode_paged_launch",
                            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _F, _I, _P]),

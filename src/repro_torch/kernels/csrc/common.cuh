@@ -22,6 +22,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
+// Element e of a 16-byte word of T, read as f32.
+template <typename T>
+__device__ __forceinline__ float word_elem(const uint4& w, int e) {
+  return to_f32(reinterpret_cast<const T*>(&w)[e]);
+}
+
 // Masked logit value of the JAX reference (models/layers.py NEG_INF).
 constexpr float kNegInf = -1073741824.0f;  // -2^30
 

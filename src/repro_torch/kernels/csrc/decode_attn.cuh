@@ -35,12 +35,6 @@ constexpr int kBT = 32;       // KV rows per tile == warp width == page rows
 constexpr int kMaxG = 8;      // query heads per KV head
 constexpr int kThreads = 128;
 
-// a 16-byte word of T, read as f32
-template <typename T>
-__device__ __forceinline__ float word_elem(const uint4& w, int e) {
-  return to_f32(reinterpret_cast<const T*>(&w)[e]);
-}
-
 // q and out are [B, H, HD]; b and kvh name this block's sequence and KV
 // head. Tiles [t_begin, t_end) are visited; an empty range writes zeros.
 template <typename T, int HD, typename Rows>

@@ -26,8 +26,8 @@ from repro_torch.kernels import ref
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"rope_align": 0, "block_diff": 0,
-                            "flash_prefill": 0, "flash_decode_paged": 0,
-                            "flash_decode": 0,
+                            "flash_prefill": 0, "flash_prefill_paged": 0,
+                            "flash_decode_paged": 0, "flash_decode": 0,
                             "fused_diff_restore": 0,
                             "fused_family_restore": 0}
 #: calls each wrapper answered with its plain version (CPU tensors)
@@ -174,6 +174,89 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # --------------------------------------------------------------------------
+def paged_prefill_input_bytes(pool_k: torch.Tensor, tail_len: int) -> int:
+    """Dense KV bytes a paged prefill materialises before its launch: the
+    tail zero-padded to the page tile (k + v), nothing else — the span
+    stays in the pool. The padding rule is the JAX wrapper's (one tile at
+    least); ``experiments/bench/prefill_paged.json`` counts with it. The
+    Hopper kernel reads the tail as it is, so it pads nothing."""
+    P, bt, KV, hd = pool_k.shape
+    t_pad = max(bt, -(-tail_len // bt) * bt)
+    return 2 * t_pad * KV * hd * pool_k.element_size()
+
+
+def flash_prefill_paged(q: torch.Tensor, pool_k: torch.Tensor,
+                        pool_v: torch.Tensor, page_idx: torch.Tensor,
+                        tail_k: Optional[torch.Tensor] = None,
+                        tail_v: Optional[torch.Tensor] = None, *,
+                        span_len: int, causal: bool = True, window: int = 0,
+                        q_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """GQA flash attention whose KV stream is read from pool pages in
+    place. q ``[B, Sq, H, hd]``; pools ``[P, bt, KV, hd]``; ``page_idx``
+    int32 ``[B, nbh]`` (sequence b's row r < ``span_len`` is slot r % bt of
+    page ``page_idx[b, r // bt]``, entries inside ``[0, P)``); tails
+    ``[B, T, KV, hd]`` (rows ``span_len .. span_len + T - 1``) or None.
+    Queries sit at ``q_pos`` (int32 ``[B, Sq]``), or row i at position i
+    with ``Sq == span_len + T`` (the JAX wrapper's contract). Column c is
+    allowed iff ``p - c < window`` (``window`` 0: unbounded) and, when
+    ``causal``, ``p >= c``. Returns ``[B, Sq, H, hd]``."""
+    if _on_cpu("flash_prefill_paged", q, pool_k, pool_v, page_idx, tail_k,
+               tail_v, q_pos):
+        return ref.flash_attention_paged_ref(
+            q, pool_k, pool_v, page_idx, tail_k, tail_v, span_len=span_len,
+            causal=causal, window=window, q_pos=q_pos)
+    _check("q", q, ndim=4)
+    _check("pool_k", pool_k, dtype=q.dtype, ndim=4)
+    _check("pool_v", pool_v, dtype=q.dtype, ndim=4)
+    _check("page_idx", page_idx, dtype=torch.int32, ndim=2)
+    B, Sq, H, hd = q.shape
+    P, bt, KV, _ = pool_k.shape
+    nbh = page_idx.shape[1]
+    T = 0
+    if tail_k is not None:
+        _check("tail_k", tail_k, dtype=q.dtype, ndim=4)
+        _check("tail_v", tail_v, dtype=q.dtype, ndim=4)
+        T = tail_k.shape[1]
+        if (tail_v.shape != tail_k.shape or tail_k.shape[0] != B
+                or tail_k.shape[2:] != pool_k.shape[2:]):
+            raise ValueError(f"bad tail shapes {tuple(tail_k.shape)} "
+                             f"{tuple(tail_v.shape)}")
+    if q_pos is not None:
+        _check("q_pos", q_pos, dtype=torch.int32, ndim=2)
+        if tuple(q_pos.shape) != (B, Sq):
+            raise ValueError("q_pos must be [B, Sq]")
+    elif Sq != span_len + T:
+        raise ValueError(f"Sq {Sq} must equal span_len + T = {span_len + T} "
+                         f"without q_pos")
+    if (pool_v.shape != pool_k.shape or pool_k.shape[3] != hd
+            or page_idx.shape[0] != B or H % KV or hd not in (32, 64, 128)
+            or not 0 < span_len <= nbh * bt or window < 0):
+        raise ValueError(f"bad flash_prefill_paged args q={tuple(q.shape)} "
+                         f"pool={tuple(pool_k.shape)} "
+                         f"page_idx={tuple(page_idx.shape)} "
+                         f"span_len={span_len} window={window}")
+    out = torch.empty_like(q)
+    _launch("flash_prefill_paged", q.data_ptr(), pool_k.data_ptr(),
+            pool_v.data_ptr(), page_idx.data_ptr(),
+            None if tail_k is None else tail_k.data_ptr(),
+            None if tail_v is None else tail_v.data_ptr(), out.data_ptr(),
+            None if q_pos is None else q_pos.data_ptr(), B, Sq, H, KV, hd, bt,
+            nbh, span_len, T, int(min(window, 2 ** 31 - 1)) or 2 ** 31 - 1,
+            int(causal), 1.0 / math.sqrt(hd), _DTYPES[q.dtype], _stream(q))
+    return out
+
+
+# --------------------------------------------------------------------------
+def paged_decode_input_bytes(pool_k: torch.Tensor, tail_len: int) -> int:
+    """Dense KV bytes a paged decode step materialises before its launch:
+    the current round's generated tail zero-padded to the page tile
+    (k + v), nothing else — the history span and every sealed round page
+    stay in the pool. The JAX wrapper's rule, the prefill one's, which
+    ``experiments/bench/decode_paged.json`` counts with; the Hopper kernel
+    masks the tail by ``tail_len`` and pads nothing."""
+    return paged_prefill_input_bytes(pool_k, tail_len)
+
+
 def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
                        pool_v: torch.Tensor, page_idx: torch.Tensor,
                        span_len: torch.Tensor,

@@ -129,13 +129,15 @@ def block_diff_ref(ks: torch.Tensor, vs: torch.Tensor, master: int,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         q_pos: torch.Tensor, window: int,
                         kv_len: Optional[torch.Tensor] = None,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        causal: bool = True) -> torch.Tensor:
     """GQA attention of queries at arbitrary positions over a dense KV.
 
     q ``[B, Sq, H, hd]``; k/v ``[B, Sk, KV, hd]``; ``q_pos`` int ``[B, Sq]``.
     Column ``j`` (its position is ``j``) is allowed for a query at ``p``
-    iff ``0 <= p - j < window`` and ``j < kv_len[b]``. Masked logits are
-    ``-2^30``; softmax in f32. Returns ``[B, Sq, H, hd]`` in v's dtype.
+    iff ``0 <= p - j < window`` and ``j < kv_len[b]`` (``causal=False``
+    drops the ``0 <=``). Masked logits are ``-2^30``; softmax in f32.
+    Returns ``[B, Sq, H, hd]`` in v's dtype.
     """
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -145,7 +147,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * scale
     cols = torch.arange(Sk, device=q.device)
     delta = q_pos[:, :, None].long() - cols[None, None, :]       # [B, Sq, Sk]
-    allowed = (delta >= 0) & (delta < window)
+    allowed = delta < window
+    if causal:
+        allowed = allowed & (delta >= 0)
     if kv_len is not None:
         allowed = allowed & (cols[None, None, :] < kv_len[:, None, None])
     logits = torch.where(allowed[:, None, None], logits,
@@ -153,6 +157,49 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
     return out.reshape(B, Sq, H, hd).to(v.dtype)
+
+
+def paged_kv_ref(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                 page_idx: torch.Tensor, tail_k: Optional[torch.Tensor],
+                 tail_v: Optional[torch.Tensor], span_len: int):
+    """The dense KV stream of paged sequences: gather ``page_idx`` (int
+    ``[B, nbh]``) out of the pools (``[P, bt, KV, hd]``), keep the first
+    ``span_len`` rows, append the dense tails (``[B, T, KV, hd]`` or None).
+    Returns k, v ``[B, span_len + T, KV, hd]`` — exactly the
+    materialisation the paged kernel avoids."""
+    B, nbh = page_idx.shape
+    P, bt, KV, hd = pool_k.shape
+    idx = page_idx.long()
+    k = pool_k[idx].reshape(B, nbh * bt, KV, hd)[:, :span_len]
+    v = pool_v[idx].reshape(B, nbh * bt, KV, hd)[:, :span_len]
+    if tail_k is not None and tail_k.shape[1]:
+        k = torch.cat([k, tail_k], dim=1)
+        v = torch.cat([v, tail_v], dim=1)
+    return k, v
+
+
+def flash_attention_paged_ref(q: torch.Tensor, pool_k: torch.Tensor,
+                              pool_v: torch.Tensor, page_idx: torch.Tensor,
+                              tail_k: Optional[torch.Tensor],
+                              tail_v: Optional[torch.Tensor], *,
+                              span_len: int, causal: bool = True,
+                              window: int = 0,
+                              q_pos: Optional[torch.Tensor] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """Flash prefill over paged KV: gather pages + tails
+    (:func:`paged_kv_ref`), then dense attention. q ``[B, Sq, H, hd]``,
+    queries at ``q_pos`` (int ``[B, Sq]``; default row i at position i,
+    with Sq == span_len + T as the JAX oracle requires); ``window`` 0 is
+    unbounded, as in the JAX kernel."""
+    k, v = paged_kv_ref(pool_k, pool_v, page_idx, tail_k, tail_v, span_len)
+    B, Sq = q.shape[:2]
+    if q_pos is None:
+        assert Sq == k.shape[1], (Sq, k.shape[1])
+        q_pos = torch.arange(Sq, dtype=torch.int32,
+                             device=q.device).expand(B, Sq)
+    return flash_attention_ref(q, k, v, q_pos=q_pos,
+                               window=window if window else 2 ** 31 - 1,
+                               scale=scale, causal=causal)
 
 
 def _decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

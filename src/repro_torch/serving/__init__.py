@@ -2,6 +2,7 @@
 tiered KV pool."""
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.kvpool import Allocation, PagedKVPool, PoolExhausted
+from repro_torch.serving.planner import RoundPlan
 from repro_torch.serving.policies import (POLICIES, PICPolicy,
                                           PolicyRuntime, RecomputePolicy,
                                           RecoveryPlan, RecoveryResult,
@@ -16,6 +17,7 @@ from repro_torch.serving.state import RoundStats, Session
 __all__ = ["Allocation", "DenseRoundKV", "HostTier", "POLICIES", "PICPolicy",
            "PagedKVPool", "PagedRoundKV", "PolicyRuntime", "PoolExhausted",
            "PoolLedger", "PoolManager", "RecomputePolicy", "RecoveryPlan",
-           "RecoveryResult", "ReusePolicy", "RoundContext", "RoundStats",
+           "RecoveryResult", "ReusePolicy", "RoundContext", "RoundPlan",
+           "RoundStats",
            "ServingEngine", "Session", "Spillable", "TokenDancePolicy",
            "get_policy", "round_kv"]

@@ -14,8 +14,11 @@ paged loop is pinned against. An SSM or hybrid model is served with the
 recompute policy whatever policy is asked for: PIC-style reuse does not
 apply to SSM state.
 
-The engine runs on the device of its parameters. The admission planner
-and the continuous engine of the JAX package are not ported yet.
+The engine runs on the device of its parameters. ``run_round`` takes a
+:class:`~repro_torch.serving.planner.RoundPlan` (admission subset and
+topology override) and the next round's plan (restore-ahead prefetch);
+the SLO planner that emits plans and the continuous engine of the JAX
+package are not ported yet.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from repro_torch.core.segments import PromptLayout, SegmentIndex
 from repro_torch.models.layers import check_supported
 from repro_torch.models.transformer import decode_step, decode_step_paged
 from repro_torch.serving.kvpool import PagedKVPool
+from repro_torch.serving.planner import RoundPlan
 from repro_torch.serving.policies import (PolicyRuntime, ReusePolicy,
                                           RoundContext, get_policy)
 from repro_torch.serving.policies.base import sync
@@ -125,6 +129,8 @@ class ServingEngine:
         self.policy = policy
         self.round_idx = 0
         self.last_outputs: Dict[str, np.ndarray] = {}
+        #: owners the next round's restores read, still to prefetch
+        self._prefetch_pending: List[str] = []
 
     # ------------------------------------------------------------------
     def init_agents(self, trace: AllGatherTrace) -> None:
@@ -250,20 +256,52 @@ class ServingEngine:
         return self._decode_finish(st)
 
     # ------------------------------------------------------------------
-    def run_round(self, rnd: Round) -> RoundStats:
-        # generate mode: previous outputs are this round's shared blocks
+    def run_round(self, rnd: Round, plan: Optional[RoundPlan] = None,
+                  next_plan: Optional[RoundPlan] = None) -> RoundStats:
+        """Serve one round. ``plan`` restricts it to the admitted agents
+        (the others keep their sessions; their last outputs stay in the
+        gather) and may override the topology; ``next_plan``, the
+        following round's admission, names the owners whose reload from
+        the host tier can overlap this round's decode."""
+        # generate mode: previous outputs are this round's shared blocks;
+        # an agent with no output yet (deferred since round 0) contributes
+        # its trace block instead
         if self.round_idx > 0 and self.last_outputs:
-            rnd = Round(rnd.index, [self.last_outputs[a]
-                                    for a in self.sessions], rnd.tasks)
+            fallback = dict(zip(rnd.tasks, list(rnd.shared_blocks)))
+            shared = []
+            for a in self.sessions:
+                prev = self.last_outputs.get(a, fallback.get(a))
+                assert prev is not None, f"no output block for agent {a}"
+                shared.append(prev)
+            rnd = Round(rnd.index, shared, rnd.tasks)
         all_ids = list(self.sessions)
+        admitted = (all_ids if plan is None
+                    else [a for a in plan.admitted if a in self.sessions])
+        topology = (plan.topology if plan is not None and plan.topology
+                    else self.topology)
         self.manager.begin_round(self.round_idx)
         ledger_before = self.manager.ledger.snapshot()
         scoped_before = self.manager.ledger.scoped_snapshot()
-        stats = RoundStats(self.round_idx, self.policy.name, len(all_ids), 0)
+        # restore-ahead: round r+1's admission names the owners its
+        # restores will read; agents admitted THIS round are excluded
+        # (this round's store re-forms their family state anyway)
+        self._prefetch_pending = (
+            [] if next_plan is None else
+            self.manager.prefetch_planner.owners_for(
+                self.sessions, next_plan.admitted, exclude=admitted))
+        stats = RoundStats(self.round_idx, self.policy.name, len(admitted), 0)
+        if plan is not None:
+            stats.admission = {
+                "max_agents": plan.max_agents,
+                "admitted": list(plan.admitted),
+                "deferred": list(plan.deferred),
+            }
+        groups = (topology.gather_groups(all_ids, admitted)
+                  if admitted else [])
         out_rows: Dict[str, np.ndarray] = {}
         logit_rows: Dict[str, np.ndarray] = {}
-        sources = self.topology.sources(all_ids)
-        for gi, gaids in enumerate(self.topology.gather_groups(all_ids)):
+        sources = topology.sources(all_ids)
+        for gi, gaids in enumerate(groups):
             parts = self._build_prompts(rnd, gaids, sources)
             for pj, (paids, tokens_np, layouts) in enumerate(parts):
                 gid = f"g{gi}" if len(parts) == 1 else f"g{gi}.{pj}"
@@ -273,11 +311,16 @@ class ServingEngine:
                 for a, row, lg in rows:
                     out_rows[a] = row
                     logit_rows[a] = lg
-        stats.outputs = np.stack([out_rows[a] for a in all_ids])
-        if self.keep_logits:
-            stats.first_logits = np.stack([logit_rows[a] for a in all_ids])
+        if admitted:
+            stats.outputs = np.stack([out_rows[a] for a in admitted])
+            if self.keep_logits:
+                stats.first_logits = np.stack(
+                    [logit_rows[a] for a in admitted])
         stats.transient_peak_bytes = self.pool.peak_bytes()
         self.manager.free_transient()
+        if self._prefetch_pending:   # retry now that transients are free
+            self.manager.prefetch(self._prefetch_pending)
+            self._prefetch_pending = []
         dev_bytes, host_bytes, cache_bytes = self._persistent_split()
         stats.persistent_bytes = dev_bytes + host_bytes
         pool_delta = self.manager.ledger.delta(ledger_before)
@@ -328,6 +371,13 @@ class ServingEngine:
             self.manager.alloc_tokens(
                 f"round:{a}", S if use_paged else S + self.gen_len,
                 persistent=False)
+
+        # restore-ahead prefetch for the next round, beside this decode
+        # (the first group to get here issues it; owners that do not fit
+        # beside the live transients are retried at round end)
+        if self._prefetch_pending:
+            self._prefetch_pending = self.manager.prefetch(
+                self._prefetch_pending)
 
         # ---- decode -------------------------------------------------------
         outputs, cache, dt_dec = self._decode(res.logits, res.cache, N, S,

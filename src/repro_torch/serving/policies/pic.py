@@ -33,6 +33,9 @@ class PICPolicy(ReusePolicy):
     requires_attention = True
     #: subclasses flip this to drive ONE grouped pass per round
     collective = False
+    #: paged histories take the collector's zero-densify path (False: the
+    #: collector densifies them, its parity oracle)
+    paged_attention = True
 
     # ------------------------------------------------------------- plan
     def plan(self, ctx: RoundContext) -> RecoveryPlan:
@@ -174,15 +177,17 @@ class PICPolicy(ReusePolicy):
             # the serial baseline consumes dense priv tuples only
             priv = priv.materialize(S)
         if self.collective:
-            key = ("coll", N, S, n_sel)
+            key = ("coll", N, S, n_sel, self.paged_attention)
             if key not in rt.warm:
-                rt.collector.collective_reuse(aids, tokens, sk, sv, src,
-                                              smask, n_sel, priv)
+                rt.collector.collective_reuse(
+                    aids, tokens, sk, sv, src, smask, n_sel, priv,
+                    paged_attention=self.paged_attention)
                 rt.warm.add(key)
             p0 = rt.collector.align_passes
             t0 = time.perf_counter()
-            res = rt.collector.collective_reuse(aids, tokens, sk, sv, src,
-                                                smask, n_sel, priv)
+            res = rt.collector.collective_reuse(
+                aids, tokens, sk, sv, src, smask, n_sel, priv,
+                paged_attention=self.paged_attention)
             sync(rt.device)
             dt = time.perf_counter() - t0
             k, v, logits = (res.pic.recovered_k, res.pic.recovered_v,

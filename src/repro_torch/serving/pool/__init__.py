@@ -4,6 +4,8 @@ from repro_torch.serving.pool.eviction import (EvictionCandidate,
                                                EvictionPolicy,
                                                FamilyCostAware, LRUByRound,
                                                get_eviction_policy)
+from repro_torch.serving.pool.histpool import (COWDedup, HistoryPagePool,
+                                               PendingDelta)
 from repro_torch.serving.pool.host import HostEntry, HostTier
 from repro_torch.serving.pool.manager import (PoolLedger, PoolManager,
                                               Spillable)
@@ -14,9 +16,10 @@ from repro_torch.serving.pool.owners import (EVICTION_RANK, TRANSIENT_KINDS,
 from repro_torch.serving.pool.prefetch import PrefetchPlanner
 
 __all__ = [
-    "EVICTION_RANK", "TRANSIENT_KINDS", "EvictionCandidate", "EvictionPolicy",
-    "FamilyCostAware", "HostEntry", "HostTier", "LRUByRound", "OwnerInfo",
-    "PoolLedger", "PoolManager", "PrefetchPlanner", "Spillable",
+    "COWDedup", "EVICTION_RANK", "TRANSIENT_KINDS", "EvictionCandidate",
+    "EvictionPolicy", "FamilyCostAware", "HistoryPagePool", "HostEntry",
+    "HostTier", "LRUByRound", "OwnerInfo", "PendingDelta", "PoolLedger",
+    "PoolManager", "PrefetchPlanner", "Spillable",
     "family_owner", "family_owners", "get_eviction_policy",
     "hist_pool_owner", "parse_owner",
 ]

@@ -24,6 +24,7 @@ class RoundStats:
     outputs: Optional[np.ndarray] = None      # [N, G] generated tokens
     first_logits: Optional[np.ndarray] = None  # [N, V] recovery logits
     reuse: dict = field(default_factory=dict)
+    admission: Optional[dict] = None          # the round's RoundPlan
 
     @property
     def t_round(self) -> float:

@@ -3,6 +3,9 @@ package's references and Pallas kernels (interpret mode) on the CPU, and —
 on a card — each CUDA kernel against its plain version
 (``pytest -m gpu tests/test_torch_kernels.py``). The restore kernels'
 plain versions are held against JAX in ``tests/test_torch_restore.py``."""
+import json
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -387,3 +390,351 @@ def test_gpu_restore_rejects_bad_slot_map(cuda, bad):
         ops.fused_diff_restore(mk, mv, dk[1], dv[1], slot[1], pages[1] + P,
                                delta[1], 1e6, pk, torch.zeros_like(pk))
     assert not any(ops.LAUNCHES.values()) and not pk.any()
+
+
+# ------------------------------------------------------ flash_prefill_paged
+def _paged_case(seed, nbh, bt, KV, hd, T, *, H=4, B=1, n_extra_pages=3,
+                share_from=None):
+    """A pool + page tables (+ dense tails) and the q to attend with, as
+    numpy f32 (``tests/test_kernels.py``'s case with a batch axis).
+    ``share_from`` aliases the first half of each table to another table's
+    pages (clean mirror blocks pointing at Master pages)."""
+    rng = _rng(seed)
+    P = B * nbh + n_extra_pages
+    span = nbh * bt
+    pool_k = rng.normal(size=(P, bt, KV, hd)).astype(np.float32)
+    pool_v = rng.normal(size=(P, bt, KV, hd)).astype(np.float32)
+    pidx = rng.permutation(P)[: B * nbh].reshape(B, nbh).astype(np.int32)
+    if share_from is not None:
+        pidx[:, : nbh // 2] = share_from[:, : nbh // 2]
+    q = rng.normal(size=(B, span + T, H, hd)).astype(np.float32)
+    tk = rng.normal(size=(B, T, KV, hd)).astype(np.float32) if T else None
+    tv = rng.normal(size=(B, T, KV, hd)).astype(np.float32) if T else None
+    return q, pool_k, pool_v, pidx, tk, tv, span
+
+
+def _jax_paged(q, pk, pv, pidx, tk, tv, span, dtype, **kw):
+    """The JAX wrapper over sequence 0, run as its suite runs it: the
+    Pallas kernel in interpret mode. Returns [S, H, hd] as f32 numpy."""
+    def j(x):
+        return None if x is None else jnp.asarray(x, dtype)
+    got = jops.flash_prefill_paged(
+        j(q[0].transpose(1, 0, 2)), j(pk), j(pv), jnp.asarray(pidx[0]),
+        j(None if tk is None else tk[0]), j(None if tv is None else tv[0]),
+        span_len=span, use_kernel=True, **kw)
+    return np.asarray(got.astype(jnp.float32)).transpose(1, 0, 2)
+
+
+def _port_paged(q, pk, pv, pidx, tk, tv, span, dtype, **kw):
+    def t(x):
+        return None if x is None else _t(x).to(dtype)
+    return ops.flash_prefill_paged(t(q), t(pk), t(pv), _t(pidx), t(tk), t(tv),
+                                   span_len=span, **kw)[0].float().numpy()
+
+
+_TOL32 = dict(atol=1e-5, rtol=1e-5)
+_TOL16 = dict(atol=3e-2, rtol=3e-2)      # tests/test_kernels.py::_tol
+
+
+@pytest.mark.parametrize("nbh,bt,KV,hd,T", [
+    (4, 32, 2, 64, 32),     # GQA H=4 over KV=2, tail
+    (2, 32, 4, 32, 0),      # no tail, H == KV
+    (1, 64, 1, 128, 64),    # one page of 64
+])
+@pytest.mark.parametrize("window", [0, 100])
+def test_flash_prefill_paged_plain_matches_pallas(nbh, bt, KV, hd, T, window):
+    case = _paged_case(0, nbh, bt, KV, hd, T)
+    want = _jax_paged(*case, jnp.float32, window=window, block_q=64)
+    got = _port_paged(*case, torch.float32, window=window)
+    np.testing.assert_allclose(got, want, **_TOL32)
+
+
+@pytest.mark.parametrize("span_off,T", [(0, 32), (-5, 32), (-5, 13), (0, 13)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_prefill_paged_plain_ragged_matches_pallas(span_off, T, dtype):
+    """A ragged last page (its slots past span_len unused) and ragged
+    tails; bf16 operands as the JAX suite casts them."""
+    q, pk, pv, pidx, tk, tv, span = _paged_case(3, 3, 32, 2, 64, T)
+    span += span_off
+    q = q[:, : span + T]
+    if dtype == "bfloat16":
+        want = _jax_paged(q, pk, pv, pidx, tk, tv, span, jnp.bfloat16,
+                          block_q=64)
+        got = _port_paged(q, pk, pv, pidx, tk, tv, span, torch.bfloat16)
+        np.testing.assert_allclose(got, want, **_TOL16)
+    else:
+        want = _jax_paged(q, pk, pv, pidx, tk, tv, span, jnp.float32,
+                          block_q=64)
+        got = _port_paged(q, pk, pv, pidx, tk, tv, span, torch.float32)
+        np.testing.assert_allclose(got, want, **_TOL32)
+
+
+def test_flash_prefill_paged_plain_page_aliasing():
+    """Two tables over one pool, the mirror's first half aliasing the
+    Master's pages: each output tracks its own gather, and both match the
+    JAX kernel."""
+    q, pk, pv, master_idx, tk, tv, span = _paged_case(5, 4, 32, 2, 64, 32)
+    mirror_idx = _paged_case(6, 4, 32, 2, 64, 32, share_from=master_idx)[3]
+    assert not np.array_equal(master_idx, mirror_idx)
+    outs = []
+    for pidx in (master_idx, mirror_idx):
+        got = _port_paged(q, pk, pv, pidx, tk, tv, span, torch.float32)
+        want = _jax_paged(q, pk, pv, pidx, tk, tv, span, jnp.float32)
+        np.testing.assert_allclose(got, want, **_TOL32)
+        kd, vd = ref.paged_kv_ref(_t(pk), _t(pv), _t(pidx), _t(tk), _t(tv),
+                                  span)
+        S = span + tk.shape[1]
+        dense = ref.flash_attention_ref(
+            _t(q), kd, vd, q_pos=torch.arange(S, dtype=torch.int32)[None],
+            window=2 ** 31 - 1)
+        np.testing.assert_array_equal(got, dense[0].numpy())
+        outs.append(got)
+    assert not np.array_equal(outs[0], outs[1])
+
+
+def test_flash_prefill_paged_plain_q_pos_and_non_causal():
+    """Selected query positions over a paged stream equal the dense plain
+    version over the gathered stream; non-causal attention matches the JAX
+    kernel's ``causal=False``."""
+    q, pk, pv, pidx, tk, tv, span = _paged_case(7, 3, 32, 2, 64, 32, B=2)
+    qt, pkt, pvt, pit, tkt, tvt = (_t(x) for x in (q, pk, pv, pidx, tk, tv))
+    sel = torch.tensor([[3, 40, 70, 100, 127], [0, 31, 32, 96, 120]],
+                       dtype=torch.int32)
+    qs = torch.stack([qt[b, sel[b].long()] for b in range(2)])
+    got = ops.flash_prefill_paged(qs, pkt, pvt, pit, tkt, tvt, span_len=span,
+                                  window=50, q_pos=sel)
+    kd, vd = ref.paged_kv_ref(pkt, pvt, pit, tkt, tvt, span)
+    want = ref.flash_attention_ref(qs, kd, vd, q_pos=sel, window=50)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    got = _port_paged(q[:1], pk, pv, pidx[:1], tk[:1], tv[:1], span,
+                      torch.float32, causal=False)
+    want = _jax_paged(q, pk, pv, pidx, tk, tv, span, jnp.float32,
+                      causal=False)
+    np.testing.assert_allclose(got, want, **_TOL32)
+
+
+# ------------------------------------------------- counted bytes (JAX era)
+BENCH = Path(__file__).resolve().parents[1] / "experiments" / "bench"
+
+
+@pytest.mark.parametrize("name,paged_key,dense_key", [
+    ("prefill_paged", "bytes_per_mirror_paged", "bytes_per_mirror_gather"),
+    ("decode_paged", "bytes_per_step_paged", "bytes_per_step_dense"),
+])
+def test_paged_input_bytes_reproduce_bench_artifacts(name, paged_key,
+                                                     dense_key):
+    """The counted attention-input bytes of the JAX-era artifacts, at
+    their recorded shapes: the paged wrappers' padded tail (the helpers
+    kept beside them) and the dense stream the gather builds."""
+    art = json.loads((BENCH / f"{name}.json").read_text())
+    sh = art["shape"]
+    assert sh["dtype"] == "float32"
+    helper = (ops.paged_prefill_input_bytes if name == "prefill_paged"
+              else ops.paged_decode_input_bytes)
+    for row in art["sweep"]:
+        pool = torch.zeros(row["pool_pages"], sh["bt"], sh["KV"], sh["hd"])
+        assert helper(pool, row["tail_len"]) == row[paged_key], row
+        T = row["tail_len"]
+        tail = torch.zeros(1, T, sh["KV"], sh["hd"])
+        pidx = torch.arange(row["span_blocks"], dtype=torch.int32)[None]
+        kd, vd = ref.paged_kv_ref(pool, pool, pidx, tail, tail,
+                                  row["span_len"])
+        assert kd.nbytes + vd.nbytes == row[dense_key], row
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_DTYPES)
+@pytest.mark.parametrize("nbh,bt,KV,hd,T,span_off,window", [
+    (4, 32, 2, 64, 32, 0, 0), (4, 32, 2, 64, 32, 0, 100),
+    (2, 32, 4, 32, 0, 0, 0), (2, 32, 4, 32, 0, 0, 100),
+    (1, 64, 1, 128, 64, 0, 0), (1, 64, 1, 128, 64, 0, 100),
+    (3, 32, 2, 64, 32, -5, 0), (3, 32, 2, 64, 13, -5, 0),
+    (3, 32, 2, 64, 13, 0, 0), (18, 32, 4, 128, 32, -5, 200),
+])
+def test_gpu_flash_prefill_paged(cuda, dtype, nbh, bt, KV, hd, T, span_off,
+                                 window):
+    """The kernel equals the dense prefill kernel on the gathered stream
+    bit for bit (aligned and ragged spans, any page size), and its plain
+    version within the card's tolerances."""
+    H = 7 * KV if hd == 128 else 2 * KV
+    g = torch.Generator(device=cuda).manual_seed(nbh * 100 + bt + T)
+    B, P = 3, 3 * nbh + 5
+    span = nbh * bt + span_off
+    S = span + T
+    pk = torch.randn(P, bt, KV, hd, generator=g, device=cuda).to(dtype)
+    pv = torch.randn(P, bt, KV, hd, generator=g, device=cuda).to(dtype)
+    pidx = torch.randperm(P, generator=g, device=cuda)[: B * nbh].reshape(
+        B, nbh).to(torch.int32)
+    pidx[1, : nbh // 2] = pidx[0, : nbh // 2]          # aliased pages
+    q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
+    tk = tv = None
+    if T:
+        tk = torch.randn(B, T, KV, hd, generator=g, device=cuda).to(dtype)
+        tv = torch.randn(B, T, KV, hd, generator=g, device=cuda).to(dtype)
+    ops.reset_launches()
+    got = ops.flash_prefill_paged(q, pk, pv, pidx, tk, tv, span_len=span,
+                                  window=window)
+    assert ops.LAUNCHES["flash_prefill_paged"] == 1
+    kd, vd = ref.paged_kv_ref(pk, pv, pidx, tk, tv, span)
+    pos = torch.arange(S, device=cuda, dtype=torch.int32).expand(B, S)
+    dense = ops.flash_attention(q, kd.contiguous(), vd.contiguous(),
+                                q_pos=pos.contiguous(),
+                                window=window or 2 ** 31 - 1)
+    assert torch.equal(got, dense)
+    want = ref.flash_attention_paged_ref(q, pk, pv, pidx, tk, tv,
+                                         span_len=span, window=window)
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1.6e-2)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_DTYPES)
+def test_gpu_flash_prefill_paged_q_pos_and_non_causal(cuda, dtype):
+    """Selected query positions over a paged stream equal the dense
+    kernel with the same positions over the gathered stream, bit for bit;
+    non-causal attention agrees with the plain version."""
+    q, pk, pv, pidx, tk, tv, span = _paged_case(9, 5, 32, 4, 128, 32, H=28,
+                                                B=3)
+    q, pk, pv, tk, tv = (_t(x).to(cuda, dtype) for x in (q, pk, pv, tk, tv))
+    pidx = _t(pidx).to(cuda)
+    sel = torch.stack([torch.sort(torch.randperm(
+        span + 32, generator=torch.Generator().manual_seed(b))[:70]).values
+        for b in range(3)]).to(torch.int32).to(cuda)
+    qs = torch.stack([q[b, sel[b].long()] for b in range(3)]).contiguous()
+    kd, vd = ref.paged_kv_ref(pk, pv, pidx, tk, tv, span)
+    for window in (0, 90):
+        got = ops.flash_prefill_paged(qs, pk, pv, pidx, tk, tv,
+                                      span_len=span, window=window,
+                                      q_pos=sel)
+        dense = ops.flash_attention(qs, kd.contiguous(), vd.contiguous(),
+                                    q_pos=sel, window=window or 2 ** 31 - 1)
+        assert torch.equal(got, dense), window
+    got = ops.flash_prefill_paged(q, pk, pv, pidx, tk, tv, span_len=span,
+                                  causal=False, window=100)
+    want = ref.flash_attention_paged_ref(q, pk, pv, pidx, tk, tv,
+                                         span_len=span, causal=False,
+                                         window=100)
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1.6e-2)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_DTYPES)
+def test_gpu_prefill_kernels_stage_unaligned_rows(cuda, dtype):
+    """K/V that do not start on a 16-byte boundary are staged element by
+    element instead of in 16-byte words: the same values, so the same
+    bits, in both prefill kernels."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, S, H, KV, hd = 2, 100, 8, 2, 64
+    q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, S, KV, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, S, KV, hd, generator=g, device=cuda).to(dtype)
+    pos = torch.arange(S, device=cuda, dtype=torch.int32).expand(B, S)
+    pos = pos.contiguous()
+
+    def shifted(x):          # same values, one element past a boundary
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        assert y.data_ptr() % 16
+        return y
+
+    aligned = ops.flash_attention(q, k, v, q_pos=pos, window=S)
+    assert torch.equal(ops.flash_attention(q, shifted(k), shifted(v),
+                                           q_pos=pos, window=S), aligned)
+    # each sequence's 100 rows as 4 pages of 25, in order
+    pk, pv = k.reshape(B * 4, 25, KV, hd), v.reshape(B * 4, 25, KV, hd)
+    pidx = torch.arange(B * 4, device=cuda, dtype=torch.int32).reshape(B, 4)
+    got = ops.flash_prefill_paged(q, pk, pv, pidx, span_len=S)
+    assert torch.equal(got, aligned)
+    assert torch.equal(ops.flash_prefill_paged(q, shifted(pk), shifted(pv),
+                                               pidx, span_len=S), aligned)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_prefill_paged_rejects_bad_operands(cuda):
+    q, pk, pv, pidx, tk, tv, span = (
+        None if x is None else _t(x).to(cuda) if isinstance(x, np.ndarray)
+        else x for x in _paged_case(8, 2, 32, 2, 64, 32))
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="span_len"):   # Sq != span + T
+        ops.flash_prefill_paged(q[:, :10].contiguous(), pk, pv, pidx, tk, tv,
+                                span_len=span)
+    with pytest.raises(ValueError, match="span_len"):   # past the table
+        ops.flash_prefill_paged(q, pk, pv, pidx, tk[:, 1:].contiguous(),
+                                tv[:, 1:].contiguous(), span_len=span + 1)
+    with pytest.raises(TypeError):                      # mixed dtypes
+        ops.flash_prefill_paged(q, pk.bfloat16(), pv, pidx, tk, tv,
+                                span_len=span)
+    assert ops.LAUNCHES["flash_prefill_paged"] == 0
+
+
+def test_incremental_restore_reproduces_bench_artifact():
+    """``restore_incremental.json``'s counted pages per round, from the
+    port's engines with and without the cross-round pool (smoke qwen2.5-7b
+    in f32, 3 agents, ``generative_agents`` seed 11, gen 32, ratio 0.1, the
+    artifact's 6 rounds, the benchmark's JAX weights carried over), with
+    equal outputs every round.
+
+    The artifact predates later JAX-era changes: the JAX engine of this
+    package no longer recomputes a history block in rounds 4-5 of this
+    trace, so it writes 3 pages there, not the recorded 4 (one COW page).
+    The port is held to the JAX engine on every field and round, and to
+    the artifact everywhere the JAX engine still reproduces it."""
+    import jax
+
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro.core.rounds import generate_trace as jax_trace
+    from repro.models import init_params as jax_init
+    from repro.serving import ServingEngine as JaxEngine
+    from repro.serving import TokenDancePolicy as JaxTokenDance
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.rounds import generate_trace
+    from repro_torch.models import from_jax
+    from repro_torch.serving import ServingEngine, TokenDancePolicy
+
+    art = json.loads((BENCH / "restore_incremental.json").read_text())
+    assert art["workload"] == ("generative_agents, N=3, gen_len=32, "
+                               "block=32, rounds=6")
+    jcfg = jax_smoke("qwen2.5-7b").replace(dtype="float32")
+    jparams = jax_init(jax.random.PRNGKey(0), jcfg)
+    cfg = get_smoke_config("qwen2.5-7b").replace(dtype="float32")
+    params = from_jax(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    kw = dict(gen_len=32, recompute_ratio=0.1)
+    stats = {inc: ServingEngine(params, cfg, TokenDancePolicy(incremental=inc),
+                                **kw).serve(generate_trace(
+                                    "generative_agents", 3, 6,
+                                    cfg.vocab_size, seed=11,
+                                    jitter_hist=False))
+             for inc in (True, False)}
+    jstats = JaxEngine(jparams, jcfg, JaxTokenDance(), **kw).serve(jax_trace(
+        "generative_agents", 3, 6, jcfg.vocab_size, seed=11,
+        jitter_hist=False))
+    rows, jrows = [], []
+    for r in range(6):
+        np.testing.assert_array_equal(stats[True][r].outputs,
+                                      stats[False][r].outputs)
+        if r == 0:
+            continue
+        rf = stats[False][r].reuse["restore"]
+        for out, ri in ((rows, stats[True][r].reuse["restore"]),
+                        (jrows, jstats[r].reuse["restore"])):
+            out.append({"round": r, "nb": ri["nb"],
+                        "incremental": ri["incremental"],
+                        "inc_pool_pages": ri["pool_pages"],
+                        "full_pool_pages": rf["pool_pages"],
+                        "pages_reused": ri.get("pages_reused", 0),
+                        "new_span_pages": ri.get("new_span_pages", 0),
+                        "cow_pages": ri.get("cow_pages", 0)})
+    assert rows == jrows
+    recorded = [{k: row[k] for k in rows[0]} for row in art["sweep"]]
+    departs = {(row["round"], k) for row, rec in zip(jrows, recorded)
+               for k in row if row[k] != rec[k]}
+    assert departs == {(4, "inc_pool_pages"), (4, "cow_pages"),
+                       (5, "inc_pool_pages"), (5, "cow_pages")}, departs
+    for row, rec in zip(rows, recorded):
+        for k in row:
+            if (row["round"], k) not in departs:
+                assert row[k] == rec[k], (row, rec)

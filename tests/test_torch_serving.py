@@ -44,7 +44,8 @@ def served():
     js = jeng.serve(generate_trace("generative_agents", N_AGENTS, N_ROUNDS,
                                    cfg.vocab_size, seed=11,
                                    jitter_hist=False))
-    teng = TorchEngine(tparams, tcfg, TorchTokenDance(), **kw)
+    teng = TorchEngine(tparams, tcfg, TorchTokenDance(incremental=False),
+                       **kw)
     ts = teng.serve(torch_trace("generative_agents", N_AGENTS, N_ROUNDS,
                                 tcfg.vocab_size, seed=11, jitter_hist=False))
     return jeng, js, teng, ts
@@ -155,7 +156,8 @@ def served_bf16():
                                        N_ROUNDS, cfg.vocab_size, **trace))
     tcfg = torch_smoke("qwen2.5-7b")
     tparams = from_jax(jax.tree.map(np.asarray, params), tcfg, device="cpu")
-    teng = TorchEngine(tparams, tcfg, TorchTokenDance(), **kw)
+    teng = TorchEngine(tparams, tcfg, TorchTokenDance(incremental=False),
+                       **kw)
     choices = []        # (round, step, own greedy tokens [N], logits [N, V])
     begin = teng._decode_begin
 
@@ -292,7 +294,8 @@ def test_entry_points_need_a_device_when_no_card():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(cfg, 0)
-    with pytest.raises(NotImplementedError):
-        TorchTokenDance(incremental=True)
+    # the cross-round incremental restore is ported: the JAX default
+    # constructs (tests/test_torch_histpool.py serves it)
+    assert TorchTokenDance().incremental
     with pytest.raises(NotImplementedError):
         init_params(cfg.replace(n_experts=4, top_k=2), 0, device="cpu")
