@@ -24,7 +24,10 @@ Phases (each prints its lines; any failure exits non-zero):
      not, everything bit-equal to the main path;
   4. each kernel against its plain PyTorch version on those main-path
      inputs (bf16, and cast to f32) and on edge cases, with CUDA-event
-     times of kernel, plain version and one PyTorch library call;
+     times of kernel, plain version and one PyTorch library call; the
+     prefill kernel is timed at the path's largest call in f32 (the
+     recovery of rounds >= 1) and in bf16, and at round 0's bf16 prefill,
+     each beside SDPA and its bound;
   5. [paged_prefill] ``flash_prefill_paged`` over the main path's round-2
      history pool, one causal launch per layer (28, counts zeroed before
      and read after), at Qwen2.5-7B heads (28 over 4, head dim 128, pages
@@ -41,8 +44,9 @@ Phases (each prints its lines; any failure exits non-zero):
      ``flash_prefill`` and ``flash_decode`` launched, ``flash_decode_paged``
      and every plain version did not. Then the ``flash_prefill`` kernel
      against its plain version at the hybrid heads (25 over 5, head dim
-     64) on the path's largest prefill and at S 1536 with a binding
-     window of 1024, in bf16 and f32; and the ``flash_decode`` kernel
+     64) on the path's largest prefill (timed in bf16 and f32 beside
+     SDPA and its bound) and at S 1536 with a binding window of 1024, in
+     bf16 and f32; and the ``flash_decode`` kernel
      against its plain version on the hybrid path's inputs (bf16) and on
      the dense Qwen path's (f32), at Sk 1536 with a binding window of 1024
      and ragged lengths, and bit-equal to the paged kernel on identical
@@ -142,6 +146,62 @@ def bound(n_bytes, flops, dtype):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
+def allowed_cols(q_pos, window, Sk, kv_len=None):
+    """The (query, column) pairs a prefill call allows, counted."""
+    lim = q_pos.long() + 1
+    lim = torch.minimum(lim, torch.full_like(lim, Sk))
+    if kv_len is not None:
+        lim = torch.minimum(lim, kv_len.long()[:, None])
+    lo = torch.clamp(q_pos.long() - window + 1, min=0)
+    return torch.clamp(lim - lo, min=0).sum().item()
+
+
+def prefill_times(timer, q, k, v, q_pos, window, kv_len=None):
+    """CUDA-event times of ``ops.flash_attention``, its plain version and
+    SDPA (GQA; ``is_causal`` for a plain causal prefill, else a boolean
+    mask of the allowed pairs) on one call's inputs, and its bound: each
+    input read once, the output written once, and the two products over
+    the allowed pairs at the input type's peak."""
+    from repro_torch.kernels import ops, ref
+
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    causal = (Sq == Sk and kv_len is None and window >= Sk and torch.equal(
+        q_pos, torch.arange(Sq, device=q.device,
+                            dtype=torch.int32).expand(B, Sq)))
+    if causal:
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+    else:
+        cols = torch.arange(Sk, device=q.device)
+        dl = q_pos.long()[:, :, None] - cols
+        mask = (dl >= 0) & (dl < window)
+        if kv_len is not None:
+            mask &= cols[None, None] < kv_len.long()[:, None, None]
+        mask = mask[:, None]
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+    bms, by = bound(nbytes(q, k, v, q_pos, kv_len) + nbytes(q),
+                    4 * hd * H * allowed_cols(q_pos, window, Sk, kv_len),
+                    q.dtype)
+    return dict(
+        ms=timer(lambda: ops.flash_attention(q, k, v, q_pos=q_pos,
+                                             window=window, kv_len=kv_len)),
+        plain_ms=timer(lambda: ref.flash_attention_ref(
+            q, k, v, q_pos=q_pos, window=window, kv_len=kv_len)),
+        library_ms=timer(library), bound_ms=bms, bound_by=by)
+
+
+def times_line(t):
+    return (f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, SDPA "
+            f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} by "
+            f"{t['bound_by']})")
+
+
 def check(name, got, want, dtype):
     atol, rtol = TOL[dtype] if name != "block_diff" else (0.0, 0.0)
     err = (got.float() - want.float()).abs()
@@ -209,6 +269,11 @@ class Recorder:
                     size *= args[1].shape[1]
                     if args[0].shape[1] != args[1].shape[1]:
                         key = "flash_attention_selected"
+                    elif args[0].dtype == torch.bfloat16:
+                        # round 0's prefill of a bf16 model (recovery in
+                        # later rounds runs in f32)
+                        self._keep("flash_attention_bf16", size, args,
+                                   kwargs)
                 elif _name == "flash_decode_paged":
                     size = args[3].numel()        # pages in the table
                 elif _name == "flash_decode":
@@ -422,15 +487,8 @@ def kernels(dev, launches, kept):
         _, (q, k, v), kw = kept[key]
         return q, k, v, kw["q_pos"], kw["window"], kw.get("kv_len")
 
-    def allowed_cols(q_pos, window, Sk, kv_len=None):
-        lim = q_pos.long() + 1
-        lim = torch.minimum(lim, torch.full_like(lim, Sk))
-        if kv_len is not None:
-            lim = torch.minimum(lim, kv_len.long()[:, None])
-        lo = torch.clamp(q_pos.long() - window + 1, min=0)
-        return torch.clamp(lim - lo, min=0).sum().item()
-
-    for key in ("flash_attention", "flash_attention_selected"):
+    for key in ("flash_attention", "flash_attention_selected",
+                "flash_attention_bf16"):
         q, k, v, q_pos, window, kv_len = attn_case(key)
         for dt in (torch.bfloat16, torch.float32):
             qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
@@ -451,25 +509,30 @@ def kernels(dev, launches, kept):
                                       kv_len=kl), q.dtype)
     q, k, v, q_pos, window, kv_len = attn_case("flash_attention")
     B, Sq, H, hd = q.shape
-    cols = allowed_cols(q_pos, window, k.shape[1], kv_len)
-    bms, by = bound(nbytes(q, k, v, q_pos, kv_len) + nbytes(q),
-                    4 * hd * H * cols, q.dtype)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     causal = bool(Sq == k.shape[1] and torch.equal(
         q_pos, torch.arange(Sq, device=dev, dtype=torch.int32).expand(B, Sq)))
     assert causal, "the largest main-path prefill call is a causal prefill"
+    # the path's largest call (f32: recovery from round 1 on) in both
+    # types, and round 0's bf16 prefill as the path gave it
+    times = {dt: prefill_times(timer, q.to(dt), k.to(dt), v.to(dt), q_pos,
+                               window, kv_len)
+             for dt in (torch.float32, torch.bfloat16)}
+    for dt, t in times.items():
+        say(f"[kernel] flash_prefill at the main path's largest call, q "
+            f"{list(q.shape)} over {k.shape[1]} rows, causal, {dt}: "
+            f"{times_line(t)}, max abs err "
+            f"{errs[('flash_attention', dt)]:.3g}")
+    r0 = attn_case("flash_attention_bf16")
+    t0 = prefill_times(timer, *r0)
+    say(f"[kernel] flash_prefill at round 0's bf16 prefill, q "
+        f"{list(r0[0].shape)} over {r0[1].shape[1]} rows: {times_line(t0)}, "
+        f"max abs err {errs[('flash_attention_bf16', torch.bfloat16)]:.3g}")
     rows.append(dict(
         name="flash_prefill", shape=list(q.shape) + [k.shape[1]],
         max_abs_err=errs[("flash_attention", q.dtype)],
         max_abs_err_selected=errs[("flash_attention_selected", q.dtype)],
         max_abs_err_f32=errs[("flash_attention", torch.float32)],
-        ms=timer(lambda: ops.flash_attention(q, k, v, q_pos=q_pos,
-                                             window=window, kv_len=kv_len)),
-        plain_ms=timer(lambda: ref.flash_attention_ref(
-            q, k, v, q_pos=q_pos, window=window, kv_len=kv_len)),
-        bound_ms=bms, bound_by=by,
-        library_ms=timer(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))))
+        **times[q.dtype]))
 
     # ---- flash_decode_paged -----------------------------------------
     _, args, kw = kept["flash_decode_paged"]
@@ -734,6 +797,7 @@ def hybrid_prefill(dev, kept):
     timer = Timer(dev)
     _, (q, k, v), kw = kept["flash_attention"]
     q_pos, window, kv_len = kw["q_pos"], kw["window"], kw.get("kv_len")
+    assert q.dtype == torch.bfloat16, q.dtype
     errs = {}
     for dt in (torch.bfloat16, torch.float32):
         qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
@@ -760,14 +824,16 @@ def hybrid_prefill(dev, kept):
                                 kv_len=kl),
             ref.flash_attention_ref(qq, kk, vv, q_pos=pe, window=1024,
                                     kv_len=kl), dt)
-    ms = timer(lambda: ops.flash_attention(q, k, v, q_pos=q_pos,
-                                           window=window, kv_len=kv_len))
-    say(f"[kernel] flash_prefill on the hybrid path: q {list(q.shape)} over "
-        f"{list(k.shape)} (G {H // KV}, window {window}) {q.dtype}, "
-        f"{ms:.4f} ms, max abs err {errs[q.dtype]:.3g} / "
-        f"{errs[torch.float32]:.3g} in f32; S {Se} with a binding window "
-        f"1024 and kv_len {kl.tolist()}: {errs[(torch.bfloat16, 'window')]:.3g}"
-        f" (bf16) / {errs[(torch.float32, 'window')]:.3g} (f32)")
+    for dt in (q.dtype, torch.float32):
+        t = prefill_times(timer, q.to(dt), k.to(dt), v.to(dt), q_pos, window,
+                          kv_len)
+        say(f"[kernel] flash_prefill on the hybrid path: q {list(q.shape)} "
+            f"over {list(k.shape)} (G {H // KV}, window {window}) {dt}: "
+            f"{times_line(t)}, max abs err {errs[dt]:.3g}")
+    say(f"[kernel] flash_prefill at S {Se} with a binding window 1024 and "
+        f"kv_len {kl.tolist()} (hybrid heads): max abs err "
+        f"{errs[(torch.bfloat16, 'window')]:.3g} (bf16) / "
+        f"{errs[(torch.float32, 'window')]:.3g} (f32)")
 
 
 def decode_kernel(dev, launches, kept, dense_kept):

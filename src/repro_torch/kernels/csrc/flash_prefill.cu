@@ -13,14 +13,18 @@
 // _softmax_update (flash_prefill.py:46-66), in f32.
 //
 // What bounds it at the serving path's shapes (S of a few hundred, hd 128):
-// neither bytes nor tensor-core flops — this first version runs its dot
-// products on the CUDA cores (no mma/wgmma), so it is bound by f32 FMA and
-// shared-memory issue. wgmma/TMA is later work; see PERF.md.
+// in bf16 the bytes (0.021 ms for q [8,544,28,128] causal, against 0.017 ms
+// of tensor-core operations); the tile function runs both products on the
+// tensor cores (mma.sync over a cp.async ring of bf16 K/V tiles), so
+// what it still lacks is wgmma's rate. In f32 the operations (0.25 ms at
+// 67 TFLOP/s): the f32 path stays on the CUDA cores, as TF32 would break
+// the f32 tolerance. See prefill_attn.cuh and PERF.md.
 //
 // Design: one block of 128 threads per (64-row q tile, query head, batch
 // row), running prefill::attend (prefill_attn.cuh, whose tile code the
 // paged prefill kernel shares) over a dense KV: column c is row c of batch
-// row b, loaded as zeros at c >= Sk.
+// row b, loaded as zeros at c >= Sk. A bf16 launch takes the ring's
+// dynamic shared memory (prefill::smem_bytes, 68 KB at head dim 128).
 #include "prefill_attn.cuh"
 
 using prefill::kBQ;
@@ -63,6 +67,23 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          scale, vec, rows);
 }
 
+template <typename T, int HD>
+static int launch_hd(dim3 grid, const T* q, const T* k, const T* v, T* out,
+                     const int* q_pos, const int* kv_len, int Sq, int Sk,
+                     int H, int KV, int window, float scale, bool vec,
+                     cudaStream_t st) {
+  constexpr int smem = prefill::smem_bytes<T, HD>();
+  if (smem > 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_prefill_kernel<T, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  flash_prefill_kernel<T, HD><<<grid, kThreads, smem, st>>>(
+      q, k, v, out, q_pos, kv_len, Sq, Sk, H, KV, window, scale, vec);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch_typed(const void* q, const void* k, const void* v, void* out,
                         const int* q_pos, const int* kv_len, int B, int Sq,
@@ -76,21 +97,17 @@ static int launch_typed(const void* q, const void* k, const void* v, void* out,
   T* oo = (T*)out;
   switch (hd) {
     case 32:
-      flash_prefill_kernel<T, 32><<<grid, kThreads, 0, st>>>(
-          qq, kk, vv, oo, q_pos, kv_len, Sq, Sk, H, KV, window, scale, vec);
-      break;
+      return launch_hd<T, 32>(grid, qq, kk, vv, oo, q_pos, kv_len, Sq, Sk, H,
+                              KV, window, scale, vec, st);
     case 64:
-      flash_prefill_kernel<T, 64><<<grid, kThreads, 0, st>>>(
-          qq, kk, vv, oo, q_pos, kv_len, Sq, Sk, H, KV, window, scale, vec);
-      break;
+      return launch_hd<T, 64>(grid, qq, kk, vv, oo, q_pos, kv_len, Sq, Sk, H,
+                              KV, window, scale, vec, st);
     case 128:
-      flash_prefill_kernel<T, 128><<<grid, kThreads, 0, st>>>(
-          qq, kk, vv, oo, q_pos, kv_len, Sq, Sk, H, KV, window, scale, vec);
-      break;
+      return launch_hd<T, 128>(grid, qq, kk, vv, oo, q_pos, kv_len, Sq, Sk, H,
+                               KV, window, scale, vec, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // kv_len may be null (every batch row has Sk valid columns).

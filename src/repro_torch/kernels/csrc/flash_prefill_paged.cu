@@ -16,8 +16,11 @@
 // first row. Masked logits are -2^30; the online softmax is
 // _softmax_update's (flash_prefill.py:46-66), in f32.
 //
-// What bounds it: as the dense prefill kernel (f32 FMA on the CUDA cores
-// at the serving path's shapes), plus one page-table read per staged row.
+// What bounds it: as the dense prefill kernel (bytes in bf16, 0.010 ms at
+// the main path's round-2 pool, q [8,256,28,128]; f32 operations on the
+// CUDA cores), plus one page-table read per staged row (in bf16, each
+// row's 16-byte words are gathered by cp.async from wherever its page
+// lies).
 //
 // Design: one block of 128 threads per (64-row q tile, query head,
 // sequence), running prefill::attend (prefill_attn.cuh), the tile code of
@@ -82,6 +85,25 @@ flash_prefill_paged_kernel(const T* __restrict__ q, const T* __restrict__ pk,
                          causal != 0, scale, vec, rows);
 }
 
+template <typename T, int HD>
+static int launch_hd(dim3 grid, const T* q, const T* pk, const T* pv,
+                     const int* page_idx, const T* tk, const T* tv, T* out,
+                     const int* q_pos, int Sq, int H, int KV, int bt, int nbh,
+                     int span, int tail_rows, int window, int causal,
+                     float scale, bool vec, cudaStream_t st) {
+  constexpr int smem = prefill::smem_bytes<T, HD>();
+  if (smem > 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_prefill_paged_kernel<T, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  flash_prefill_paged_kernel<T, HD><<<grid, kThreads, smem, st>>>(
+      q, pk, pv, page_idx, tk, tv, out, q_pos, Sq, H, KV, bt, nbh, span,
+      tail_rows, window, causal, scale, vec);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch_typed(const void* q, const void* pk, const void* pv,
                         const int* page_idx, const void* tk, const void* tv,
@@ -99,24 +121,20 @@ static int launch_typed(const void* q, const void* pk, const void* pv,
   T* oo = (T*)out;
   switch (hd) {
     case 32:
-      flash_prefill_paged_kernel<T, 32><<<grid, kThreads, 0, st>>>(
-          qq, kk, vv, page_idx, tkk, tvv, oo, q_pos, Sq, H, KV, bt, nbh, span,
-          tail_rows, window, causal, scale, vec);
-      break;
+      return launch_hd<T, 32>(grid, qq, kk, vv, page_idx, tkk, tvv, oo, q_pos,
+                              Sq, H, KV, bt, nbh, span, tail_rows, window,
+                              causal, scale, vec, st);
     case 64:
-      flash_prefill_paged_kernel<T, 64><<<grid, kThreads, 0, st>>>(
-          qq, kk, vv, page_idx, tkk, tvv, oo, q_pos, Sq, H, KV, bt, nbh, span,
-          tail_rows, window, causal, scale, vec);
-      break;
+      return launch_hd<T, 64>(grid, qq, kk, vv, page_idx, tkk, tvv, oo, q_pos,
+                              Sq, H, KV, bt, nbh, span, tail_rows, window,
+                              causal, scale, vec, st);
     case 128:
-      flash_prefill_paged_kernel<T, 128><<<grid, kThreads, 0, st>>>(
-          qq, kk, vv, page_idx, tkk, tvv, oo, q_pos, Sq, H, KV, bt, nbh, span,
-          tail_rows, window, causal, scale, vec);
-      break;
+      return launch_hd<T, 128>(grid, qq, kk, vv, page_idx, tkk, tvv, oo,
+                               q_pos, Sq, H, KV, bt, nbh, span, tail_rows,
+                               window, causal, scale, vec, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // tk/tv and q_pos may be null (no tail; query row i at position i).

@@ -17,7 +17,8 @@ apply to SSM state.
 The engine runs on the device of its parameters. ``run_round`` takes a
 :class:`~repro_torch.serving.planner.RoundPlan` (admission subset and
 topology override) and the next round's plan (restore-ahead prefetch);
-the SLO planner that emits plans and the continuous engine of the JAX
+``serve(trace, planner, n_rounds)`` asks a caller's planner for both.
+The SLO planner that emits plans and the continuous engine of the JAX
 package are not ported yet.
 """
 from __future__ import annotations
@@ -422,10 +423,39 @@ class ServingEngine:
         return dev, host, cache
 
     # ------------------------------------------------------------------
-    def serve(self, trace: AllGatherTrace,
+    def serve(self, trace: AllGatherTrace, planner=None,
               n_rounds: Optional[int] = None) -> List[RoundStats]:
-        """Serve a trace: one :meth:`run_round` per round."""
+        """Serve a trace: one :meth:`run_round` per round, each preceded
+        by the planner's admission decision (admit-all when absent).
+
+        ``planner`` is any object with ``plan_round(round_idx, agent_ids)
+        -> RoundPlan`` and ``observe(stats, collective=...)``, as the JAX
+        package's ``RoundPlanner``; the arguments keep the JAX order
+        ``(trace, planner, n_rounds)``. The plan for round r+1 is made
+        while round r is current and handed to :meth:`run_round` as
+        ``next_plan`` (restore-ahead prefetch); round r's stats reach
+        ``observe`` after that lookahead plan exists.
+        """
         if not self.sessions:
             self.init_agents(trace)
-        return [self.run_round(rnd)
-                for rnd in trace.rounds[: n_rounds or len(trace.rounds)]]
+        rounds = trace.rounds[: n_rounds or len(trace.rounds)]
+        out = []
+        plan = (None if planner is None or not rounds else
+                planner.plan_round(self.round_idx, list(self.sessions)))
+        for i, rnd in enumerate(rounds):
+            next_plan = (None if planner is None or i + 1 >= len(rounds) else
+                         planner.plan_round(self.round_idx + 1,
+                                            list(self.sessions)))
+            stats = self.run_round(rnd, plan, next_plan=next_plan)
+            out.append(stats)
+            if planner is not None:
+                collective = getattr(self.policy, "collective",
+                                     self.policy.name == "tokendance")
+                planner.observe(stats, collective=collective)
+            plan = next_plan
+        return out
+
+    def run_trace(self, trace: AllGatherTrace,
+                  n_rounds: Optional[int] = None) -> List[RoundStats]:
+        """:meth:`serve` without a planner."""
+        return self.serve(trace, n_rounds=n_rounds)

@@ -275,6 +275,78 @@ def test_gpu_flash_attention(cuda, dtype, H, KV, hd):
                                            kv_len=kl), dtype)
 
 
+def _held(got, want, dtype, what):
+    """The card's tolerance against the plain version (f32 atol 1e-4 +
+    rtol 1e-4; bf16 atol 2e-2 + rtol 1.6e-2, one or two bf16 ulps of the
+    same f32 value); prints and returns the max abs error."""
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1.6e-2)
+    err = (got.float() - want.float()).abs().max().item()
+    print(f"{what} {dtype}: max abs err {err:.3g}")
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol, msg=lambda m: f"{what}: {m}")
+    return err
+
+
+def _shifted(x):
+    """The same values one element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16
+    return y
+
+
+# head dims x GQA groups of the tensor-core path's edge tests: the hd 32,
+# 64 and 128 fragments, G 1 (H == KV), 5 (Hymba-1.5B) and 7 (Qwen2.5-7B)
+EDGE_HEADS = [(hd, G) for hd in (32, 64, 128) for G in (1, 5, 7)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_DTYPES)
+@pytest.mark.parametrize("case", ["causal_ragged", "kv_len", "window",
+                                  "selected", "unaligned"])
+@pytest.mark.parametrize("hd,G", EDGE_HEADS)
+def test_gpu_flash_prefill_edges(cuda, dtype, case, hd, G):
+    """The dense prefill kernel where the bf16 path's 16-row fragments
+    and 64-row KV tiles are cut: Sq 141 (= 2 x 64 + 13), kv_len 155 and
+    71, a binding window with a ragged kv_len, selected query positions
+    with a binding window, and K/V off a 16-byte boundary (staged with
+    plain loads: the same bits as the aligned launch). Every query row
+    keeps an allowed column."""
+    g = torch.Generator(device=cuda).manual_seed(hd + G)
+    KV, B = 2, 2
+    H = KV * G
+    Sk, Sq, window, kv_len, q_pos = 141, 141, 141, None, None
+    if case == "kv_len":
+        Sk = Sq = 200
+        kv_len = [155, 71]
+    elif case == "window":
+        Sk = Sq = 300
+        window, kv_len = 100, [300, 251]
+    elif case == "selected":
+        Sk, Sq, window, kv_len = 250, 97, 90, [233, 250]
+        q_pos = torch.stack([torch.sort(torch.randperm(
+            Sk, generator=g, device=cuda)[:Sq]).values for _ in range(B)])
+    q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, Sk, KV, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, Sk, KV, hd, generator=g, device=cuda).to(dtype)
+    if q_pos is None:
+        q_pos = torch.arange(Sq, device=cuda).expand(B, Sq)
+    q_pos = q_pos.to(torch.int32).contiguous()
+    kl = (None if kv_len is None else
+          torch.tensor(kv_len, device=cuda, dtype=torch.int32))
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, q_pos=q_pos, window=window, kv_len=kl)
+    assert ops.LAUNCHES["flash_prefill"] == 1
+    if case == "unaligned":
+        assert torch.equal(ops.flash_attention(
+            q, _shifted(k), _shifted(v), q_pos=q_pos, window=window,
+            kv_len=kl), got)
+    _held(got, ref.flash_attention_ref(q, k, v, q_pos=q_pos, window=window,
+                                       kv_len=kl), dtype,
+          f"flash_prefill {case} hd {hd} G {G}")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", GPU_DTYPES)
 @pytest.mark.parametrize("H,KV,hd", [(28, 4, 128), (8, 2, 32)])
@@ -633,24 +705,78 @@ def test_gpu_prefill_kernels_stage_unaligned_rows(cuda, dtype):
     v = torch.randn(B, S, KV, hd, generator=g, device=cuda).to(dtype)
     pos = torch.arange(S, device=cuda, dtype=torch.int32).expand(B, S)
     pos = pos.contiguous()
-
-    def shifted(x):          # same values, one element past a boundary
-        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
-        y = buf[1:].view(x.shape)
-        y.copy_(x)
-        assert y.data_ptr() % 16
-        return y
-
     aligned = ops.flash_attention(q, k, v, q_pos=pos, window=S)
-    assert torch.equal(ops.flash_attention(q, shifted(k), shifted(v),
+    assert torch.equal(ops.flash_attention(q, _shifted(k), _shifted(v),
                                            q_pos=pos, window=S), aligned)
     # each sequence's 100 rows as 4 pages of 25, in order
     pk, pv = k.reshape(B * 4, 25, KV, hd), v.reshape(B * 4, 25, KV, hd)
     pidx = torch.arange(B * 4, device=cuda, dtype=torch.int32).reshape(B, 4)
     got = ops.flash_prefill_paged(q, pk, pv, pidx, span_len=S)
     assert torch.equal(got, aligned)
-    assert torch.equal(ops.flash_prefill_paged(q, shifted(pk), shifted(pv),
+    assert torch.equal(ops.flash_prefill_paged(q, _shifted(pk), _shifted(pv),
                                                pidx, span_len=S), aligned)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_DTYPES)
+@pytest.mark.parametrize("case", ["ragged_span", "aliased_window",
+                                  "selected", "non_causal", "unaligned"])
+@pytest.mark.parametrize("hd,G", EDGE_HEADS)
+def test_gpu_flash_prefill_paged_edges(cuda, dtype, case, hd, G):
+    """The paged prefill kernel at the same edges: spans of 149 (pages of
+    32) and 141 (pages of 16) with tails of 13 and 21, so a page, a
+    16-row fragment and a 64-row KV tile are cut; half of table 1
+    aliasing table 0's pages under a binding window; selected query
+    positions with a binding window; non-causal; the pool off a 16-byte
+    boundary. Bit-equal to the dense kernel on the gathered stream where
+    that kernel expresses the call (causal), and held to the plain
+    version in every case."""
+    g = torch.Generator(device=cuda).manual_seed(1000 + hd + G)
+    KV, B = 2, 2
+    H = KV * G
+    nbh, bt, cut, T = (9, 16, 3, 21) if case == "aliased_window" else \
+        (5, 32, 11, 13)
+    span = nbh * bt - cut
+    S = span + T
+    P = B * nbh + 3
+    pk = torch.randn(P, bt, KV, hd, generator=g, device=cuda).to(dtype)
+    pv = torch.randn(P, bt, KV, hd, generator=g, device=cuda).to(dtype)
+    pidx = torch.randperm(P, generator=g, device=cuda)[: B * nbh].reshape(
+        B, nbh).to(torch.int32)
+    if case == "aliased_window":
+        pidx[1, : nbh // 2] = pidx[0, : nbh // 2]
+    pidx = pidx.contiguous()
+    tk = torch.randn(B, T, KV, hd, generator=g, device=cuda).to(dtype)
+    tv = torch.randn(B, T, KV, hd, generator=g, device=cuda).to(dtype)
+    q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
+    window, causal, q_pos = 0, True, None
+    if case == "aliased_window":
+        window = 70
+    elif case == "selected":
+        window = 60
+        q_pos = torch.stack([torch.sort(torch.randperm(
+            S, generator=g, device=cuda)[:83]).values for _ in range(B)]
+        ).to(torch.int32).contiguous()
+        q = torch.stack([q[b, q_pos[b].long()] for b in range(B)])
+        q = q.contiguous()
+    elif case == "non_causal":
+        causal, window = False, 50
+    kw = dict(span_len=span, causal=causal, window=window, q_pos=q_pos)
+    ops.reset_launches()
+    got = ops.flash_prefill_paged(q, pk, pv, pidx, tk, tv, **kw)
+    assert ops.LAUNCHES["flash_prefill_paged"] == 1
+    if case == "unaligned":
+        assert torch.equal(ops.flash_prefill_paged(
+            q, _shifted(pk), _shifted(pv), pidx, tk, tv, **kw), got)
+    if causal:
+        kd, vd = ref.paged_kv_ref(pk, pv, pidx, tk, tv, span)
+        pos = q_pos if q_pos is not None else torch.arange(
+            S, device=cuda, dtype=torch.int32).expand(B, S).contiguous()
+        assert torch.equal(got, ops.flash_attention(
+            q, kd.contiguous(), vd.contiguous(), q_pos=pos,
+            window=window or 2 ** 31 - 1)), "paged != dense kernel"
+    _held(got, ref.flash_attention_paged_ref(q, pk, pv, pidx, tk, tv, **kw),
+          dtype, f"flash_prefill_paged {case} hd {hd} G {G}")
 
 
 @pytest.mark.gpu

@@ -299,3 +299,87 @@ def test_entry_points_need_a_device_when_no_card():
     assert TorchTokenDance().incremental
     with pytest.raises(NotImplementedError):
         init_params(cfg.replace(n_experts=4, top_k=2), 0, device="cpu")
+
+
+# ------------------------------------------------------------ serve(...)
+# Both engines take serve(trace, planner=None, n_rounds=None): a caller
+# that passes n_rounds positionally hands it over as the planner, and the
+# first plan_round call raises in both packages.
+@pytest.fixture(scope="module")
+def positional():
+    cfg = get_smoke_config("qwen2.5-7b").replace(dtype="float32")
+    params = jax_init(jax.random.PRNGKey(0), cfg)
+    tcfg = torch_smoke("qwen2.5-7b").replace(dtype="float32")
+    tparams = from_jax(jax.tree.map(np.asarray, params), tcfg, device="cpu")
+    kw = dict(gen_len=GEN, recompute_ratio=0.1, keep_logits=True)
+
+    def trace(gen, vocab):
+        return gen("generative_agents", N_AGENTS, N_ROUNDS, vocab, seed=11,
+                   jitter_hist=False)
+
+    return (lambda: ServingEngine(params, cfg, **kw),
+            lambda: TorchEngine(tparams, tcfg, **kw),
+            lambda: trace(generate_trace, cfg.vocab_size),
+            lambda: trace(torch_trace, tcfg.vocab_size))
+
+
+def _assert_rounds_equal(ts, js):
+    assert len(ts) == len(js)
+    for r, (t, j) in enumerate(zip(ts, js)):
+        np.testing.assert_array_equal(t.outputs, j.outputs, err_msg=str(r))
+        want = {k: v for k, v in j.reuse.items() if k != "plan"}
+        assert _plain(t.reuse) == _plain(want), r
+        assert t.persistent_bytes == j.persistent_bytes, r
+        assert t.transient_peak_bytes == j.transient_peak_bytes, r
+        assert t.admission == j.admission, r
+
+
+def test_serve_positional_arguments_equal_jax(positional):
+    """``serve(trace, None, 2)`` serves two rounds in both packages with
+    equal tokens and ledgers, as ``run_trace(trace, 2)`` does in the
+    port; ``serve(trace, 2)`` passes 2 as the planner and raises in
+    both."""
+    jax_eng, torch_eng, jax_tr, torch_tr = positional
+    js = jax_eng().serve(jax_tr(), None, 2)
+    ts = torch_eng().serve(torch_tr(), None, 2)
+    assert len(ts) == 2
+    _assert_rounds_equal(ts, js)
+    _assert_rounds_equal(torch_eng().run_trace(torch_tr(), 2), js)
+    for make, tr in ((jax_eng, jax_tr), (torch_eng, torch_tr)):
+        with pytest.raises(AttributeError, match="plan_round"):
+            make().serve(tr(), 2)
+
+
+class _DeferLast:
+    """A planner stub: admits every agent but defers the last one in
+    round 1, and records each call the engine makes."""
+
+    def __init__(self, plan_cls):
+        self.plan_cls, self.calls = plan_cls, []
+
+    def plan_round(self, round_idx, agent_ids):
+        self.calls.append(("plan", round_idx, list(agent_ids)))
+        cut = agent_ids[-1:] if round_idx == 1 else []
+        return self.plan_cls(round_idx,
+                             [a for a in agent_ids if a not in cut], cut)
+
+    def observe(self, stats, collective):
+        self.calls.append(("observe", stats.round_idx, collective))
+
+
+def test_serve_asks_the_planner_as_jax_does(positional):
+    """The lookahead order (plan r+1 before round r runs, observe r
+    after), the admission each round records, and the served tokens and
+    ledgers are those of the JAX engine under the same planner."""
+    from repro.serving.planner import RoundPlan as JaxPlan
+    from repro_torch.serving.planner import RoundPlan as TorchPlan
+
+    jax_eng, torch_eng, jax_tr, torch_tr = positional
+    jp, tp = _DeferLast(JaxPlan), _DeferLast(TorchPlan)
+    js = jax_eng().serve(jax_tr(), jp)
+    ts = torch_eng().serve(torch_tr(), tp)
+    assert tp.calls == jp.calls
+    assert [c[:2] for c in tp.calls[:4]] == [
+        ("plan", 0), ("plan", 1), ("observe", 0), ("plan", 2)]
+    assert ts[1].admission["deferred"] == [tp.calls[0][2][-1]]
+    _assert_rounds_equal(ts, js)
