@@ -27,7 +27,9 @@ Phases (each prints its lines; any failure exits non-zero):
      times of kernel, plain version and one PyTorch library call; the
      prefill kernel is timed at the path's largest call in f32 (the
      recovery of rounds >= 1) and in bf16, and at round 0's bf16 prefill,
-     each beside SDPA and its bound;
+     each beside SDPA and its bound; the paged decode kernel is timed at
+     the path's call in bf16 and f32 and called twice for the same bits,
+     with the host time of one wrapper call;
   5. [paged_prefill] ``flash_prefill_paged`` over the main path's round-2
      history pool, one causal launch per layer (28, counts zeroed before
      and read after), at Qwen2.5-7B heads (28 over 4, head dim 128, pages
@@ -47,10 +49,12 @@ Phases (each prints its lines; any failure exits non-zero):
      64) on the path's largest prefill (timed in bf16 and f32 beside
      SDPA and its bound) and at S 1536 with a binding window of 1024, in
      bf16 and f32; and the ``flash_decode`` kernel
-     against its plain version on the hybrid path's inputs (bf16) and on
-     the dense Qwen path's (f32), at Sk 1536 with a binding window of 1024
-     and ragged lengths, and bit-equal to the paged kernel on identical
-     KV; CUDA-event times of kernel, plain version and SDPA with a mask;
+     against its plain version on the hybrid path's inputs and on the
+     dense Qwen path's, each in bf16 and f32, twice for the same bits and
+     bit-equal to the paged kernel on identical KV, and at Sk 1536 with a
+     binding window of 1024 and ragged lengths, and at Sk 4096 (more
+     than 32 splits a pair); CUDA-event times of kernel, plain version
+     and SDPA with a mask in both types, and the host time of one call;
   7. the f32 smoke configurations (Qwen2.5-7B with TokenDance, Hymba-1.5B
      with its recompute fallback) served on the card against the same
      engine on the CPU: greedy tokens equal, logits within atol 1e-3;
@@ -114,7 +118,12 @@ def say(*a):
 # ------------------------------------------------------------ measurement
 class Timer:
     """Median CUDA-event time of one call, with the L2 cache evicted
-    before every timed call (64 MB written; the card's L2 is 50 MB)."""
+    before every timed call (64 MB written; the card's L2 is 50 MB) and
+    the device then held ~0.1 ms by a spin, so that the host has enqueued
+    the call before its start event fires: a kernel's device time, not
+    its wrapper's host time (which exceeds a short kernel's)."""
+
+    SPIN = 200_000        # device cycles
 
     def __init__(self, dev):
         self.flush = torch.empty(16 * 2 ** 20, dtype=torch.float32,
@@ -126,6 +135,7 @@ class Timer:
         pairs = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -134,6 +144,21 @@ class Timer:
             pairs.append((s, e))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+    @staticmethod
+    def host_us(fn, n=200):
+        """Host time of one call in µs: n calls enqueued back to back,
+        without waiting for the device (a wrapper's checks, allocations
+        and launch)."""
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / n * 1e6
 
 
 def nbytes(*ts):
@@ -196,10 +221,29 @@ def prefill_times(timer, q, k, v, q_pos, window, kv_len=None):
         library_ms=timer(library), bound_ms=bms, bound_by=by)
 
 
+def sdpa_decode(q, k, v, mask):
+    """SDPA (GQA, boolean mask [B, Sk]) of one query per sequence over
+    dense K/V [B, Sk, KV, hd]: the decode kernels' library yardstick."""
+    q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    m4 = mask[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=m4,
+                                                  enable_gqa=True)
+
+
+def decode_times(timer, kernel, plain, library, n_bytes, flops, dtype):
+    """CUDA-event times of a decode kernel, its plain version and the
+    library call, its bound, and the host time of one wrapper call."""
+    bms, by = bound(n_bytes, flops, dtype)
+    return dict(ms=timer(kernel), plain_ms=timer(plain),
+                library_ms=timer(library), bound_ms=bms, bound_by=by,
+                host_us=timer.host_us(kernel))
+
+
 def times_line(t):
+    host = f", host {t['host_us']:.1f} us a call" if "host_us" in t else ""
     return (f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, SDPA "
             f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} by "
-            f"{t['bound_by']})")
+            f"{t['bound_by']}{host})")
 
 
 def check(name, got, want, dtype):
@@ -537,13 +581,35 @@ def kernels(dev, launches, kept):
     # ---- flash_decode_paged -----------------------------------------
     _, args, kw = kept["flash_decode_paged"]
     q, pk, pv, pidx, span = args[:5]
+    B, H, hd = q.shape
+    bt, KV = pk.shape[1], pk.shape[2]
+    nbt = pidx.shape[1]
+    cols = int(span.long().sum().item())
+    mask = (torch.arange(nbt * bt, device=dev)[None] < span[:, None])
+    ptimes = {}
+    # the path's call in both types (f32 from round 1 on, bf16 in round 0):
+    # against the plain version, twice for the same bits, and timed
     for dt in (torch.bfloat16, torch.float32):
         a = [q.to(dt), pk.to(dt), pv.to(dt), pidx, span]
-        errs[dt] = check("flash_decode_paged", ops.flash_decode_paged(*a),
+        got = ops.flash_decode_paged(*a)
+        errs[dt] = check("flash_decode_paged", got,
                          ref.flash_decode_paged_ref(*a), dt)
+        assert torch.equal(ops.flash_decode_paged(*a), got), \
+            ("flash_decode_paged", dt, "two calls differ")
+        kd = a[1][pidx.long()].reshape(B, nbt * bt, KV, hd)
+        vd = a[2][pidx.long()].reshape(B, nbt * bt, KV, hd)
+        ptimes[dt] = decode_times(
+            timer, lambda a=a: ops.flash_decode_paged(*a),
+            lambda a=a: ref.flash_decode_paged_ref(*a),
+            sdpa_decode(a[0], kd, vd, mask),
+            nbytes(a[0], pidx, span) + nbytes(a[0])
+            + 2 * cols * KV * hd * a[1].element_size(),
+            4 * hd * H * cols, dt)
+        say(f"[kernel] flash_decode_paged at the main path's call, q "
+            f"{list(q.shape)} over {nbt} pages of {bt}, span "
+            f"{span.tolist()}, {dt}: {times_line(ptimes[dt])}, max abs err "
+            f"{errs[dt]:.3g}; two calls bit-equal")
     # edges: ragged last pages (span not a page multiple), then a tail
-    B, H, hd = q.shape
-    KV = pk.shape[2]
     rag = torch.clamp(span - torch.arange(1, B + 1, device=dev,
                                           dtype=torch.int32) * 7, min=1)
     tk = torch.randn(B, 64, KV, hd, device=dev).to(q.dtype)
@@ -553,27 +619,10 @@ def kernels(dev, launches, kept):
               ops.flash_decode_paged(q, pk, pv, pidx, rag, *extra),
               ref.flash_decode_paged_ref(q, pk, pv, pidx, rag, *extra),
               q.dtype)
-    bt = pk.shape[1]
-    pages = int(((span.long() + bt - 1) // bt).sum().item())
-    page_bytes = bt * KV * hd * pk.element_size()
-    cols = int(span.long().sum().item())
-    bms, by = bound(nbytes(q, pidx, span) + nbytes(q) + 2 * pages * page_bytes,
-                    4 * hd * H * cols, q.dtype)
-    nbt = pidx.shape[1]
-    kd = pk[pidx.long()].reshape(B, nbt * bt, KV, hd).transpose(1, 2)
-    vd = pv[pidx.long()].reshape(B, nbt * bt, KV, hd).transpose(1, 2)
-    mask = (torch.arange(nbt * bt, device=dev)[None] < span[:, None])
-    mask = mask[:, None, None, :]
-    q4 = q[:, :, None]
     rows.append(dict(
         name="flash_decode_paged", shape=list(q.shape) + [nbt * bt],
         max_abs_err=errs[q.dtype], max_abs_err_f32=errs[torch.float32],
-        ms=timer(lambda: ops.flash_decode_paged(q, pk, pv, pidx, span)),
-        plain_ms=timer(lambda: ref.flash_decode_paged_ref(q, pk, pv, pidx,
-                                                          span)),
-        bound_ms=bms, bound_by=by,
-        library_ms=timer(lambda: F.scaled_dot_product_attention(
-            q4, kd, vd, attn_mask=mask, enable_gqa=True))))
+        **ptimes[q.dtype]))
 
     for r in rows:
         r["launches"] = launches[r["name"]]
@@ -839,8 +888,9 @@ def hybrid_prefill(dev, kept):
 def decode_kernel(dev, launches, kept, dense_kept):
     """The flash_decode kernel against its plain version and the paged
     kernel on the inputs kept from the hybrid path (``kept``) and the
-    dense Qwen path (``dense_kept``), and its times; returns its
-    kernel-table row."""
+    dense Qwen path (``dense_kept``), each in bf16 and f32, twice for the
+    same bits, and its times in both types; returns its kernel-table
+    row (the hybrid path's call in its own type)."""
     from repro_torch.kernels import ops, ref
 
     timer = Timer(dev)
@@ -860,20 +910,44 @@ def decode_kernel(dev, launches, kept, dense_kept):
         return (k.reshape(B * nbt, 32, KV, hd), v.reshape(B * nbt, 32, KV, hd),
                 pidx)
 
-    def paged_equal(q, k, v, kv_len):
-        """Identical KV as 32-row pages: the paged kernel's bits."""
-        return torch.equal(ops.flash_decode(q, k, v, kv_len, k.shape[1]),
-                           ops.flash_decode_paged(q, *as_pages(k, v), kv_len))
+    def measure(q, k, v, kv_len, window):
+        """The bytes are q, kv_len and the output plus the allowed rows of
+        K and V, read once per KV head."""
+        H, hd = q.shape[1:]
+        KV = k.shape[2]
+        mask = allowed(kv_len, window, k.shape[1])
+        rows = int(mask.sum().item())
+        return decode_times(
+            timer, lambda: ops.flash_decode(q, k, v, kv_len, window),
+            lambda: ref.flash_decode_ref(q, k, v, kv_len, window),
+            sdpa_decode(q, k, v, mask),
+            nbytes(q, kv_len) + nbytes(q)
+            + 2 * rows * KV * hd * k.element_size(), 4 * hd * H * rows,
+            q.dtype)
 
-    errs = {}
+    errs, times = {}, {}
     cases = {"hybrid": kept["flash_decode"], "dense": dense_kept}
     for key, (_, (q, k, v, kv_len, window), _) in cases.items():
         for dt in (torch.bfloat16, torch.float32):
             qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
+            got = ops.flash_decode(qq, kk, vv, kv_len, window)
             errs[(key, dt)] = check(
-                "flash_decode", ops.flash_decode(qq, kk, vv, kv_len, window),
+                "flash_decode", got,
                 ref.flash_decode_ref(qq, kk, vv, kv_len, window), dt)
-            assert paged_equal(qq, kk, vv, kv_len), (key, dt, "paged != dense")
+            assert torch.equal(ops.flash_decode(qq, kk, vv, kv_len, window),
+                               got), (key, dt, "two calls differ")
+            # identical KV as 32-row pages: the paged kernel's bits
+            assert torch.equal(
+                ops.flash_decode(qq, kk, vv, kv_len, kk.shape[1]),
+                ops.flash_decode_paged(qq, *as_pages(kk, vv), kv_len)), \
+                (key, dt, "paged != dense")
+            times[(key, dt)] = measure(qq, kk, vv, kv_len, window)
+            say(f"[kernel] flash_decode on the {key} path: q "
+                f"{list(q.shape)} over {list(k.shape)}, kv_len "
+                f"{kv_len.tolist()}, window {window}, {dt}: "
+                f"{times_line(times[(key, dt)])}, max abs err "
+                f"{errs[(key, dt)]:.3g}; two calls bit-equal, paged == "
+                f"dense bit-equal")
     # edges: Sk 1536 with a window of 1024 that binds, ragged lengths, at
     # the two paths' head shapes
     g = torch.Generator(device=dev).manual_seed(0)
@@ -889,23 +963,32 @@ def decode_kernel(dev, launches, kept, dense_kept):
         errs[(key, "window")] = check(
             "flash_decode", ops.flash_decode(qe, ke, ve, kl, 1024),
             ref.flash_decode_ref(qe, ke, ve, kl, 1024), q.dtype)
-    def measure(q, k, v, kv_len, window):
-        """(ms, plain ms, library ms, bound ms, bound by): the bytes are
-        q, kv_len and the output plus the allowed rows of K and V, read
-        once per KV head."""
-        H, hd = q.shape[1:]
-        Sk, KV = k.shape[1], k.shape[2]
-        mask = allowed(kv_len, window, Sk)
-        rows = int(mask.sum().item())
-        q4, kd, vd = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-        m4 = mask[:, None, None, :]
-        return (timer(lambda: ops.flash_decode(q, k, v, kv_len, window)),
-                timer(lambda: ref.flash_decode_ref(q, k, v, kv_len, window)),
-                timer(lambda: F.scaled_dot_product_attention(
-                    q4, kd, vd, attn_mask=m4, enable_gqa=True)),
-                *bound(nbytes(q, kv_len) + nbytes(q)
-                       + 2 * rows * KV * hd * k.element_size(),
-                       4 * hd * H * rows, q.dtype))
+    say(f"[kernel] flash_decode with a binding window 1024 at Sk 1536: max "
+        f"abs err {errs[('dense', 'window')]:.3g} (Qwen heads, "
+        f"{dense_kept[1][0].dtype}) / {errs[('hybrid', 'window')]:.3g} "
+        f"(Hymba heads, {kept['flash_decode'][1][0].dtype})")
+    # more than 32 splits a pair, so the merge runs past its first chunk:
+    # kv_len 2049 (a last chunk of one split) and 4096 (two full chunks)
+    for key, (_, (q, k, _, _, _), _) in cases.items():
+        B, H, hd = q.shape
+        KV = k.shape[2]
+        ql = torch.randn(B, H, hd, generator=g, device=dev).to(q.dtype)
+        kl_, vl = (torch.randn(B, 4096, KV, hd, generator=g,
+                               device=dev).to(q.dtype) for _ in range(2))
+        lens = torch.tensor([(2049, 4096, 3001, 1)[i % 4] for i in range(B)],
+                            device=dev, dtype=torch.int32)
+        got = ops.flash_decode(ql, kl_, vl, lens, 4096)
+        errs[(key, "long")] = check("flash_decode", got, ref.flash_decode_ref(
+            ql, kl_, vl, lens, 4096), q.dtype)
+        assert torch.equal(ops.flash_decode(ql, kl_, vl, lens, 4096), got), \
+            (key, "long", "two calls differ")
+        assert torch.equal(ops.flash_decode_paged(ql, *as_pages(kl_, vl),
+                                                  lens), got), \
+            (key, "long", "paged != dense")
+    say(f"[kernel] flash_decode at Sk 4096, kv_len 2049/4096/3001/1 (up to "
+        f"64 splits a pair): max abs err {errs[('dense', 'long')]:.3g} "
+        f"(Qwen heads) / {errs[('hybrid', 'long')]:.3g} (Hymba heads); two "
+        f"calls bit-equal, paged == dense bit-equal")
 
     # the two kernels on the same rows (no window), in turns: dense, paged,
     # paged, dense
@@ -923,24 +1006,12 @@ def decode_kernel(dev, launches, kept, dense_kept):
             f"path's rows ({q.dtype}): dense {t[0]:.4f} / {t[3]:.4f} ms, "
             f"paged {t[1]:.4f} / {t[2]:.4f} ms")
 
-    _, (q, k, *_), _ = dense_kept
-    t = measure(*dense_kept[1])
-    say(f"[kernel] flash_decode on the dense Qwen path: q {list(q.shape)} "
-        f"over {list(k.shape)} {q.dtype}, {t[0]:.4f} ms (plain {t[1]:.4f}, "
-        f"library {t[2]:.4f}, bound {t[3]:.4f} by {t[4]}), max abs err "
-        f"{errs[('dense', q.dtype)]:.3g}; binding window 1024 at Sk 1536: "
-        f"{errs[('dense', 'window')]:.3g} (f32, Qwen heads) / "
-        f"{errs[('hybrid', 'window')]:.3g} (bf16, Hymba heads); paged == "
-        f"dense bit-equal on both paths' inputs")
-
     _, (q, k, *_), _ = kept["flash_decode"]
-    ms, plain_ms, library_ms, bms, by = measure(*kept["flash_decode"][1])
     return dict(
         name="flash_decode", shape=list(q.shape) + [k.shape[1]],
         max_abs_err=errs[("hybrid", q.dtype)],
         max_abs_err_f32=errs[("hybrid", torch.float32)],
-        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=library_ms, launches=launches["flash_decode"])
+        launches=launches["flash_decode"], **times[("hybrid", q.dtype)])
 
 
 # ------------------------------------------------------------- phase 6

@@ -3,8 +3,9 @@ served by ``ServingEngine`` + ``TokenDancePolicy`` on the 8-agent,
 3-round trace — and its ``[hybrid]`` phase (Hymba-1.5B on the same
 trace) from several checkouts in turn on one card, and print each run's
 per-round recover, restore and decode ms, serve seconds and peak device
-memory (its ``[main]`` lines) and the hybrid rounds' recover and decode
-ms and serve seconds as one JSON line.
+memory (its ``[main]`` lines), the ``[dense]`` loop's decode ms per round,
+and the hybrid rounds' recover and decode ms and serve seconds as one
+JSON line.
 
     python3 scripts/ab_main_path.py PARENT . . PARENT
 
@@ -36,6 +37,8 @@ def run(root: str) -> dict:
                      if line.startswith("[main]"))
     hyb = "\n".join(line for line in text.splitlines()
                     if line.startswith("[hybrid]"))
+    dense = "\n".join(line for line in text.splitlines()
+                      if line.startswith("[dense]"))
     return {"root": root,
             "recover_ms": [float(x) for x in
                            re.findall(r"\(recover ([0-9.]+)", main)],
@@ -46,6 +49,9 @@ def run(root: str) -> dict:
             "serve_s": float(re.search(r"serve ([0-9.]+) s", main).group(1)),
             "peak_gib": float(re.search(r"peak device memory ([0-9.]+) GiB",
                                         main).group(1)),
+            "dense_decode_ms": [float(x) for x in
+                                re.findall(r"decode ([0-9.]+), store",
+                                           dense)],
             "hybrid_recover_ms": [float(x) for x in
                                   re.findall(r"\(recover ([0-9.]+)", hyb)],
             "hybrid_decode_ms": [float(x) for x in

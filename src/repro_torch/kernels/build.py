@@ -2,9 +2,11 @@
 
 Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with :mod:`ctypes`.
-Nothing includes PyTorch's headers, so a build takes seconds. Builds go
-to ``build/repro_torch_kernels/`` at the root of the checkout, named by a
-hash of the sources and flags, and happen at the first launch of a
+Nothing includes PyTorch's headers, so a build takes seconds. The decode
+kernels' tiles per split come from ``ops.DECODE_SPLIT_TILES`` as a
+define, so the wrappers' scratch and the kernels share one number. Builds
+go to ``build/repro_torch_kernels/`` at the root of the checkout, named by
+a hash of the sources and flags, and happen at the first launch of a
 kernel — never at import, so the CPU tests import every module without a
 compiler. :func:`build_all` starts one ``nvcc`` per source at once.
 """
@@ -44,10 +46,9 @@ SIGNATURES = {
     "flash_prefill_paged": ("flash_prefill_paged_launch",
                             [_P] * 8 + [_I] * 11 + [_F, _I, _P]),
     "flash_decode_paged": ("flash_decode_paged_launch",
-                           [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _F, _I, _P]),
+                           [_P] * 10 + [_I] * 9 + [_F, _I, _P]),
     "flash_decode": ("flash_decode_launch",
-                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
+                     [_P] * 7 + [_I] * 7 + [_F, _I, _P]),
     "fused_diff_restore": ("fused_diff_restore_launch",
                            [_P] * 10 + [_I] * 8 + [_P]),
     "fused_family_restore": ("fused_family_restore_launch",
@@ -71,11 +72,18 @@ def nvcc() -> str:
     return found
 
 
+def flags() -> tuple:
+    """``NVCC_FLAGS`` and the defines the sources take from Python."""
+    from repro_torch.kernels.ops import DECODE_SPLIT_TILES
+
+    return (*NVCC_FLAGS, f"-DDECODE_SPLIT_TILES={DECODE_SPLIT_TILES}")
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha1()
     for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags()).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -91,7 +99,7 @@ def build_all(names=SOURCES) -> Dict[str, str]:
             BUILD_LOGS.setdefault(name, "(cached build)")
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *flags(), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

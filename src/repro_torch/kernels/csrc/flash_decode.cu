@@ -16,18 +16,23 @@
 // What bounds it: bytes. Each allowed row is read once per KV head and the
 // arithmetic is two flops per loaded element per query head of the group.
 //
-// Design: one block of 128 threads per (KV head, sequence) covers the G
-// query heads of that KV head (G = 5 for Hymba-1.5B, 7 for Qwen2.5-7B);
-// tiles of 32 rows run through decode::attend (decode_attn.cuh), the tile
-// arithmetic of the paged decode kernel, so paged == dense holds bit for
-// bit whenever the two see the same rows. Tiles wholly before the window
-// (rows < kv_len - window) or past kv_len are never loaded; masked columns
-// inside a loaded tile score -2^30.
+// Design: the grid is (KV head, sequence, split): one block of 256 threads
+// per split of decode::kSplitTiles 32-row tiles of a (KV head, sequence)
+// pair covers the G query heads of that KV head (G = 5 for Hymba-1.5B, 7
+// for Qwen2.5-7B), so the card has KV x B x S blocks to spread the cache
+// over (Hymba at Sk 576: 360) and each row is read once per group. Tiles
+// run through decode::attend (decode_attn.cuh): a cp.async ring, the tile
+// arithmetic, and the fixed-order combine of the splits, shared with the
+// paged decode kernel, so paged == dense holds bit for bit whenever the
+// two see the same rows. Tiles wholly before the window (rows < kv_len -
+// window) or past kv_len are never loaded; masked columns inside a loaded
+// tile score -2^30.
 #include "decode_attn.cuh"
 
 using decode::kBT;
 using decode::kMaxG;
 using decode::kThreads;
+using decode::n_splits;
 
 namespace {
 
@@ -60,8 +65,9 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ kv_len,
-                    T* __restrict__ out, int H, int KV, int Sk, int window,
-                    float scale) {
+                    T* __restrict__ out, float* __restrict__ part,
+                    int* __restrict__ tickets, int H, int KV, int Sk,
+                    int window, float scale) {
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int len = max(min(kv_len[b], Sk), 0);
   const long long base = (long long)b * Sk * KV * HD;
@@ -69,51 +75,68 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // first allowed row: kv_len - window (window >= 1)
   const long long lo = max((long long)len - window, 0LL);
   decode::attend<T, HD>(q, out, b, kvh, H, KV, scale, (int)(lo / kBT),
-                        (len + kBT - 1) / kBT, rows);
+                        (len + kBT - 1) / kBT, rows, part, tickets);
+}
+
+template <typename T, int HD>
+static int launch_hd(dim3 grid, const T* q, const T* k, const T* v,
+                     const int* kv_len, T* out, float* part, int* tickets,
+                     int H, int KV, int Sk, int window, float scale,
+                     cudaStream_t st) {
+  constexpr int smem = decode::smem_bytes<T, HD>();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_decode_kernel<T, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  flash_decode_kernel<T, HD><<<grid, kThreads, smem, st>>>(
+      q, k, v, kv_len, out, part, tickets, H, KV, Sk, window, scale);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch_typed(const void* q, const void* k, const void* v,
-                        const int* kv_len, void* out, int B, int H, int KV,
-                        int hd, int Sk, int window, float scale,
-                        cudaStream_t st) {
-  dim3 grid(KV, B);
+                        const int* kv_len, void* out, float* part,
+                        int* tickets, int B, int H, int KV, int hd, int Sk,
+                        int S, int window, float scale, cudaStream_t st) {
+  dim3 grid(KV, B, S);
   const T* qq = (const T*)q;
   const T* kk = (const T*)k;
   const T* vv = (const T*)v;
   T* oo = (T*)out;
   switch (hd) {
     case 32:
-      flash_decode_kernel<T, 32><<<grid, kThreads, 0, st>>>(
-          qq, kk, vv, kv_len, oo, H, KV, Sk, window, scale);
-      break;
+      return launch_hd<T, 32>(grid, qq, kk, vv, kv_len, oo, part, tickets, H,
+                              KV, Sk, window, scale, st);
     case 64:
-      flash_decode_kernel<T, 64><<<grid, kThreads, 0, st>>>(
-          qq, kk, vv, kv_len, oo, H, KV, Sk, window, scale);
-      break;
+      return launch_hd<T, 64>(grid, qq, kk, vv, kv_len, oo, part, tickets, H,
+                              KV, Sk, window, scale, st);
     case 128:
-      flash_decode_kernel<T, 128><<<grid, kThreads, 0, st>>>(
-          qq, kk, vv, kv_len, oo, H, KV, Sk, window, scale);
-      break;
+      return launch_hd<T, 128>(grid, qq, kk, vv, kv_len, oo, part, tickets,
+                               H, KV, Sk, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
-// H / KV must be at most 8 and window at least 1.
+// H / KV must be at most 8 and window at least 1. S splits a pair must
+// cover ceil(Sk / 32) tiles; part holds B * KV * S partials of
+// (H / KV) * (hd + 2) floats; tickets holds B * KV zeros.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const int* kv_len,
-                                   void* out, int B, int H, int KV, int hd,
-                                   int Sk, int window, float scale,
+                                   void* out, float* part, int* tickets,
+                                   int B, int H, int KV, int hd, int Sk,
+                                   int S, int window, float scale,
                                    int dtype, void* stream) {
-  if (H % KV != 0 || H / KV > kMaxG || window < 1)
+  if (H % KV != 0 || H / KV > kMaxG || window < 1 ||
+      S < n_splits((Sk + kBT - 1) / kBT))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kF32)
-    return launch_typed<float>(q, k, v, kv_len, out, B, H, KV, hd, Sk,
-                               window, scale, st);
-  return launch_typed<__nv_bfloat16>(q, k, v, kv_len, out, B, H, KV, hd, Sk,
-                                     window, scale, st);
+    return launch_typed<float>(q, k, v, kv_len, out, part, tickets, B, H, KV,
+                               hd, Sk, S, window, scale, st);
+  return launch_typed<__nv_bfloat16>(q, k, v, kv_len, out, part, tickets, B,
+                                     H, KV, hd, Sk, S, window, scale, st);
 }

@@ -14,18 +14,22 @@
 // What bounds it: bytes. Each valid page is read once per KV head and the
 // arithmetic is two flops per loaded element per query head of the group.
 //
-// Design: one block of 128 threads per (KV head, sequence) covers the G
-// query heads that share that KV head (G = 7 for Qwen2.5-7B), so each page
-// is read from device memory once per group, not once per query head. The
-// block walks only the ceil(span_len / bt) pages the sequence needs, then
-// the tail, one page (bt = 32 rows) per tile of decode::attend
-// (decode_attn.cuh), whose tile arithmetic the dense decode kernel
-// (flash_decode.cu) shares.
+// Design: the grid is (KV head, sequence, split): one block of 256 threads
+// per split of decode::kSplitTiles pages of a (KV head, sequence) pair
+// covers the G query heads that share that KV head (G = 7 for
+// Qwen2.5-7B), so each page is read from device memory once per group,
+// not once per query head, and the card has KV x B x S blocks (Qwen at 18
+// pages: 288) instead of KV x B (32). The pair walks only the
+// ceil(span_len / bt) pages the sequence needs, then the tail, one page
+// (bt = 32 rows) per tile of decode::attend (decode_attn.cuh): a cp.async
+// ring, the tile arithmetic and the fixed-order combine of the splits,
+// which the dense decode kernel (flash_decode.cu) shares.
 #include "decode_attn.cuh"
 
 using decode::kBT;
 using decode::kMaxG;
 using decode::kThreads;
+using decode::n_splits;
 
 namespace {
 
@@ -69,8 +73,9 @@ flash_decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ pk,
                           const T* __restrict__ pv, const int* __restrict__ page_idx,
                           const int* __restrict__ span_len,
                           const T* __restrict__ tk, const T* __restrict__ tv,
-                          T* __restrict__ out, int H, int KV, int nbt, int Tp,
-                          int tail_len, float scale) {
+                          T* __restrict__ out, float* __restrict__ part,
+                          int* __restrict__ tickets, int H, int KV, int nbt,
+                          int Tp, int tail_len, float scale) {
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int span = span_len[b];
   const int npages = min((span + kBT - 1) / kBT, nbt);
@@ -81,16 +86,36 @@ flash_decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ pk,
                               tv ? tv + tail_off : nullptr,
                               KV, kvh, npages, Tp, span, tail_len};
   decode::attend<T, HD>(q, out, b, kvh, H, KV, scale, 0, npages + ntail,
-                        rows);
+                        rows, part, tickets);
+}
+
+template <typename T, int HD>
+static int launch_hd(dim3 grid, const T* q, const T* pk, const T* pv,
+                     const int* page_idx, const int* span_len, const T* tk,
+                     const T* tv, T* out, float* part, int* tickets, int H,
+                     int KV, int nbt, int Tp, int tail_len, float scale,
+                     cudaStream_t st) {
+  constexpr int smem = decode::smem_bytes<T, HD>();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_decode_paged_kernel<T, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  flash_decode_paged_kernel<T, HD><<<grid, kThreads, smem, st>>>(
+      q, pk, pv, page_idx, span_len, tk, tv, out, part, tickets, H, KV, nbt,
+      Tp, tail_len, scale);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch_typed(const void* q, const void* pk, const void* pv,
                         const int* page_idx, const int* span_len,
-                        const void* tk, const void* tv, void* out, int B,
-                        int H, int KV, int hd, int nbt, int Tp, int tail_len,
+                        const void* tk, const void* tv, void* out,
+                        float* part, int* tickets, int B, int H, int KV,
+                        int hd, int nbt, int Tp, int tail_len, int S,
                         float scale, cudaStream_t st) {
-  dim3 grid(KV, B);
+  dim3 grid(KV, B, S);
   const T* qq = (const T*)q;
   const T* kk = (const T*)pk;
   const T* vv = (const T*)pv;
@@ -99,41 +124,44 @@ static int launch_typed(const void* q, const void* pk, const void* pv,
   T* oo = (T*)out;
   switch (hd) {
     case 32:
-      flash_decode_paged_kernel<T, 32><<<grid, kThreads, 0, st>>>(
-          qq, kk, vv, page_idx, span_len, tkk, tvv, oo, H, KV, nbt, Tp,
-          tail_len, scale);
-      break;
+      return launch_hd<T, 32>(grid, qq, kk, vv, page_idx, span_len, tkk, tvv,
+                              oo, part, tickets, H, KV, nbt, Tp, tail_len,
+                              scale, st);
     case 64:
-      flash_decode_paged_kernel<T, 64><<<grid, kThreads, 0, st>>>(
-          qq, kk, vv, page_idx, span_len, tkk, tvv, oo, H, KV, nbt, Tp,
-          tail_len, scale);
-      break;
+      return launch_hd<T, 64>(grid, qq, kk, vv, page_idx, span_len, tkk, tvv,
+                              oo, part, tickets, H, KV, nbt, Tp, tail_len,
+                              scale, st);
     case 128:
-      flash_decode_paged_kernel<T, 128><<<grid, kThreads, 0, st>>>(
-          qq, kk, vv, page_idx, span_len, tkk, tvv, oo, H, KV, nbt, Tp,
-          tail_len, scale);
-      break;
+      return launch_hd<T, 128>(grid, qq, kk, vv, page_idx, span_len, tkk,
+                               tvv, oo, part, tickets, H, KV, nbt, Tp,
+                               tail_len, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
-// tk/tv may be null (no tail); bt must be 32 and H / KV at most 8.
+// tk/tv may be null (no tail); bt must be 32 and H / KV at most 8. S
+// splits a pair must cover nbt + ceil(Tp / 32) tiles; part holds
+// B * KV * S partials of (H / KV) * (hd + 2) floats; tickets holds B * KV
+// zeros.
 extern "C" int flash_decode_paged_launch(const void* q, const void* pk,
                                          const void* pv, const int* page_idx,
                                          const int* span_len, const void* tk,
-                                         const void* tv, void* out, int B,
+                                         const void* tv, void* out,
+                                         float* part, int* tickets, int B,
                                          int H, int KV, int hd, int bt,
-                                         int nbt, int Tp, int tail_len,
+                                         int nbt, int Tp, int tail_len, int S,
                                          float scale, int dtype, void* stream) {
-  if (bt != kBT || H % KV != 0 || H / KV > kMaxG) return (int)cudaErrorInvalidValue;
+  if (bt != kBT || H % KV != 0 || H / KV > kMaxG ||
+      S < n_splits(nbt + (tk ? (Tp + kBT - 1) / kBT : 0)))
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kF32)
-    return launch_typed<float>(q, pk, pv, page_idx, span_len, tk, tv, out, B,
-                               H, KV, hd, nbt, Tp, tail_len, scale, st);
+    return launch_typed<float>(q, pk, pv, page_idx, span_len, tk, tv, out,
+                               part, tickets, B, H, KV, hd, nbt, Tp, tail_len,
+                               S, scale, st);
   return launch_typed<__nv_bfloat16>(q, pk, pv, page_idx, span_len, tk, tv,
-                                     out, B, H, KV, hd, nbt, Tp, tail_len,
-                                     scale, st);
+                                     out, part, tickets, B, H, KV, hd, nbt, Tp,
+                                     tail_len, S, scale, st);
 }

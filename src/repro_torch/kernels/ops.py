@@ -9,15 +9,16 @@ contiguity) raises, and so does a launch the CUDA runtime refuses.
 
 Every wrapper allocates its output with ``torch.empty`` (the two restore
 wrappers write into the pools they are given, in place, as the TPU
-kernels alias theirs), launches on the current stream without
-synchronising, and adds one to ``LAUNCHES[<kernel>]`` where — and only
-where — it launches the kernel, so a run can show that its path went
-through each kernel.
+kernels alias theirs; the two decode wrappers also allocate their
+splits' f32 scratch, and keep the splits' tickets per stream),
+launches on the current stream without synchronising, and adds one to
+``LAUNCHES[<kernel>]`` where — and only where — it launches the kernel,
+so a run can show that its path went through each kernel.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -247,6 +248,45 @@ def flash_prefill_paged(q: torch.Tensor, pool_k: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+#: KV tiles of 32 rows that one split of a decode launch walks; the build
+#: passes it to the kernels (``decode::kSplitTiles``)
+DECODE_SPLIT_TILES = 2
+#: the decode kernels' arrival tickets per (device, stream), one per
+#: (KV head, sequence) pair: zero between launches (the last split of a
+#: pair resets its own), so they are allocated once, zeroed, and grown
+#: when a launch has more pairs. Launches on one stream run in order and
+#: share them.
+_DECODE_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def decode_split_plan(n_tiles: int, B: int, KV: int, G: int,
+                      hd: int) -> Tuple[int, Tuple[int, int]]:
+    """The split grid of a decode launch whose sequences span at most
+    ``n_tiles`` 32-row tiles: ``(S, scratch shape)``. Each (KV head,
+    sequence) pair gets S splits of :data:`DECODE_SPLIT_TILES` tiles,
+    enough for the longest sequence, and each (pair, split) one f32
+    partial of ``G * (hd + 2)`` floats (acc ``[G, hd]``, then the running
+    max and sum per head). Dense: ``n_tiles = ceil(Sk / 32)``; paged:
+    ``nbt + ceil(Tp / 32)``."""
+    S = max(1, -(-n_tiles // DECODE_SPLIT_TILES))
+    return S, (B * KV * S, G * (hd + 2))
+
+
+def _split_operands(q: torch.Tensor, n_tiles: int, KV: int):
+    """S, the partials' scratch, the tickets and the stream of one decode
+    launch."""
+    B, H, hd = q.shape
+    S, shape = decode_split_plan(n_tiles, B, KV, H // KV, hd)
+    stream = _stream(q)
+    tickets = _DECODE_TICKETS.get((q.device, stream))
+    if tickets is None or tickets.numel() < B * KV:
+        tickets = torch.zeros(max(B * KV, 256), dtype=torch.int32,
+                              device=q.device)
+        _DECODE_TICKETS[(q.device, stream)] = tickets
+    part = torch.empty(shape, dtype=torch.float32, device=q.device)
+    return S, part, tickets, stream
+
+
 def paged_decode_input_bytes(pool_k: torch.Tensor, tail_len: int) -> int:
     """Dense KV bytes a paged decode step materialises before its launch:
     the current round's generated tail zero-padded to the page tile
@@ -294,13 +334,15 @@ def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
                 or tail_k.shape[2:] != pool_k.shape[2:] or tail_len > Tp):
             raise ValueError(f"bad tail shapes {tuple(tail_k.shape)}")
     out = torch.empty_like(q)
+    nbt = page_idx.shape[1]
+    S, part, tickets, stream = _split_operands(q, nbt + -(-Tp // bt), KV)
     _launch("flash_decode_paged", q.data_ptr(), pool_k.data_ptr(),
             pool_v.data_ptr(), page_idx.data_ptr(), span_len.data_ptr(),
             None if tail_k is None else tail_k.data_ptr(),
             None if tail_v is None else tail_v.data_ptr(),
-            out.data_ptr(), B, H, KV, hd, bt, page_idx.shape[1], Tp,
-            tail_len if tail_k is not None else 0, 1.0 / math.sqrt(hd),
-            _DTYPES[q.dtype], _stream(q))
+            out.data_ptr(), part.data_ptr(), tickets.data_ptr(), B, H, KV,
+            hd, bt, nbt, Tp, tail_len if tail_k is not None else 0, S,
+            1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
     return out
 
 
@@ -327,10 +369,12 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"k={tuple(k.shape)} kv_len={tuple(kv_len.shape)} "
                          f"window={window}")
     out = torch.empty_like(q)
+    S, part, tickets, stream = _split_operands(q, -(-Sk // 32), KV)
     _launch("flash_decode", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            kv_len.data_ptr(), out.data_ptr(), B, H, KV, hd, Sk,
+            kv_len.data_ptr(), out.data_ptr(), part.data_ptr(),
+            tickets.data_ptr(), B, H, KV, hd, Sk, S,
             int(min(window, 2 ** 31 - 1)), 1.0 / math.sqrt(hd),
-            _DTYPES[q.dtype], _stream(q))
+            _DTYPES[q.dtype], stream)
     return out
 
 

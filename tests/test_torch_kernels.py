@@ -368,6 +368,51 @@ def test_gpu_flash_decode_paged(cuda, dtype, H, KV, hd):
            dtype)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_DTYPES)
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 5, 7, 8])
+@pytest.mark.parametrize("B", [1, 64])
+def test_gpu_flash_decode_paged_split_tails(cuda, dtype, hd, G, B):
+    """Pages then a tail, cut into splits of ops.DECODE_SPLIT_TILES tiles:
+    spans of 1, 31, 32, 33, 2 and 3 pages (so the first tail tile shares
+    a split with the last page, or starts one), tails of 0, 1, 33 and 64
+    rows, and tails given with tail_len 0. Each call is held to its plain
+    version and a second call gives the same bits; where the span is
+    whole pages, the dense kernel over the same rows (pages, then the
+    tail) gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(hd * G + B)
+    KV, nbt, Tp = 2, 5, 64
+    H = G * KV
+    P = B * nbt + 7
+    q = torch.randn(B, H, hd, generator=g, device=cuda).to(dtype)
+    pk = torch.randn(P, 32, KV, hd, generator=g, device=cuda).to(dtype)
+    pv = torch.randn(P, 32, KV, hd, generator=g, device=cuda).to(dtype)
+    tk = torch.randn(B, Tp, KV, hd, generator=g, device=cuda).to(dtype)
+    tv = torch.randn(B, Tp, KV, hd, generator=g, device=cuda).to(dtype)
+    pidx = torch.randperm(P, generator=g, device=cuda)[: B * nbt].reshape(
+        B, nbt).to(torch.int32).contiguous()
+    spans = [1, 31, 32, 33, 64, 96]
+    for sp in ([[s] for s in spans] if B == 1 else
+               [[spans[i % len(spans)] for i in range(B)]]):
+        span = torch.tensor(sp, device=cuda, dtype=torch.int32)
+        for tail_len in (0, 1, 33, 64):
+            args = (q, pk, pv, pidx, span, tk, tv, tail_len)
+            got = ops.flash_decode_paged(*args)
+            _close(got, ref.flash_decode_paged_ref(*args), dtype)
+            assert torch.equal(ops.flash_decode_paged(*args), got)
+            if B == 1 and sp[0] % 32 == 0:
+                n = sp[0] // 32
+                rows = pidx[0, :n].long()
+                kd = torch.cat([pk[rows].reshape(1, n * 32, KV, hd), tk], 1)
+                vd = torch.cat([pv[rows].reshape(1, n * 32, KV, hd), tv], 1)
+                kl = torch.tensor([n * 32 + tail_len], device=cuda,
+                                  dtype=torch.int32)
+                assert torch.equal(ops.flash_decode(q, kd.contiguous(),
+                                                    vd.contiguous(), kl,
+                                                    kd.shape[1]), got)
+
+
 RESTORE_CASES = {          # mirror diff counts, padded diff rows, shifted
     "single_mirror": ([4], 0, False),
     "zero_diffs": ([0, 0, 0], 0, False),
