@@ -91,6 +91,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM, data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
               torch.float32: 67e12}             # f32 outside tensor cores
+TF32_FLOPS = 495e12                             # dense tensor-core TF32
 REPLACES = {
     "rope_align": "src/repro/kernels/rope_align.py:47",
     "block_diff": "src/repro/kernels/block_diff.py:43",
@@ -165,9 +166,14 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def bound(n_bytes, flops, dtype):
+def bound(n_bytes, flops, dtype, split_tf32=False):
+    """The least time in ms and what sets it. ``split_tf32``: an f32
+    product may also run as three TF32 products on the tensor cores (the
+    f32 prefill path's design), so the lower of the two rates counts."""
     t_b = n_bytes / HBM_BYTES_PER_S
     t_f = flops / PEAK_FLOPS[dtype]
+    if split_tf32 and dtype == torch.float32:
+        t_f = min(t_f, 3 * flops / TF32_FLOPS)
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -210,15 +216,16 @@ def prefill_times(timer, q, k, v, q_pos, window, kv_len=None):
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                   enable_gqa=True)
-    bms, by = bound(nbytes(q, k, v, q_pos, kv_len) + nbytes(q),
-                    4 * hd * H * allowed_cols(q_pos, window, Sk, kv_len),
-                    q.dtype)
+    n_bytes = nbytes(q, k, v, q_pos, kv_len) + nbytes(q)
+    flops = 4 * hd * H * allowed_cols(q_pos, window, Sk, kv_len)
+    bms, by = bound(n_bytes, flops, q.dtype, split_tf32=True)
     return dict(
         ms=timer(lambda: ops.flash_attention(q, k, v, q_pos=q_pos,
                                              window=window, kv_len=kv_len)),
         plain_ms=timer(lambda: ref.flash_attention_ref(
             q, k, v, q_pos=q_pos, window=window, kv_len=kv_len)),
-        library_ms=timer(library), bound_ms=bms, bound_by=by)
+        library_ms=timer(library), bound_ms=bms, bound_by=by,
+        bound_cuda_core_ms=bound(n_bytes, flops, q.dtype)[0])
 
 
 def sdpa_decode(q, k, v, mask):
@@ -241,9 +248,12 @@ def decode_times(timer, kernel, plain, library, n_bytes, flops, dtype):
 
 def times_line(t):
     host = f", host {t['host_us']:.1f} us a call" if "host_us" in t else ""
+    core = ""
+    if t.get("bound_cuda_core_ms", t["bound_ms"]) != t["bound_ms"]:
+        core = f" (CUDA cores {t['bound_cuda_core_ms']:.4f})"
     return (f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, SDPA "
             f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} by "
-            f"{t['bound_by']}{host})")
+            f"{t['bound_by']}{core}{host})")
 
 
 def check(name, got, want, dtype):
@@ -286,12 +296,16 @@ def build():
 class Recorder:
     """Wraps the ops wrappers during the main path and keeps a clone of
     the inputs of each kernel's largest call (and, for attention, of the
-    largest call with selected query positions)."""
+    largest call with selected query positions). ``split`` sorts the
+    ``flash_prefill`` launch count's increments by call: bf16, f32 fresh
+    (every row a query: the prefill or a recovery's fresh layers) and f32
+    selective (a recovery's selected rows)."""
 
     def __init__(self, ops):
         self.ops = ops
         self.kept = {}
         self.orig = {}
+        self.split = {"bf16": 0, "f32 fresh": 0, "f32 selective": 0}
 
     def _keep(self, key, size, args, kwargs):
         # ``size`` orders calls by their work, read from shapes only (no
@@ -323,7 +337,15 @@ class Recorder:
                 elif _name == "flash_decode":
                     size = args[1].numel()        # the dense cache
                 self._keep(key, size, args, kwargs)
-                return _fn(*args, **kwargs)
+                if _name != "flash_attention":
+                    return _fn(*args, **kwargs)
+                n0 = self.ops.LAUNCHES["flash_prefill"]
+                out = _fn(*args, **kwargs)
+                kind = ("bf16" if args[0].dtype == torch.bfloat16 else
+                        "f32 fresh" if args[0].shape[1] == args[1].shape[1]
+                        else "f32 selective")
+                self.split[kind] += self.ops.LAUNCHES["flash_prefill"] - n0
+                return out
 
             setattr(self.ops, name, wrapped)
         return self
@@ -346,7 +368,7 @@ def restore_line(rs):
 
 def serve_phase(tag, engine, trace, ops):
     """Serve the trace with the launch counts zeroed just before and read
-    just after; returns (stats, launches, plain calls, wall s, kept)."""
+    just after; returns (stats, launches, the Recorder)."""
     with Recorder(ops) as rec:
         ops.reset_launches()
         t0 = time.perf_counter()
@@ -365,7 +387,8 @@ def serve_phase(tag, engine, trace, ops):
     say(f"[{tag}] serve {wall:.2f} s; launches {launches}  plain-version "
         f"calls {plain}")
     assert not any(plain.values()), f"plain versions ran: {plain}"
-    return stats, launches, rec.kept
+    assert sum(rec.split.values()) == launches["flash_prefill"], rec.split
+    return stats, launches, rec
 
 
 def main_path(dev):
@@ -406,7 +429,9 @@ def main_path(dev):
 
     engine.collector.collective_reuse = spy
     torch.cuda.reset_peak_memory_stats()
-    stats, launches, kept = serve_phase("main", engine, trace, ops)
+    stats, launches, rec = serve_phase("main", engine, trace, ops)
+    kept = rec.kept
+    say(f"[main] flash_prefill launches by call: {rec.split}")
     del engine.collector.collective_reuse     # the spy holds the engine
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for st in stats:
@@ -461,18 +486,18 @@ def main_path(dev):
 
     # [dense]: the same weights and trace through the dense decode loop
     engine = ServingEngine(params, cfg, paged_decode=False, keep_logits=True)
-    dense, dlaunches, dkept = serve_phase("dense", engine, trace, ops)
+    dense, dlaunches, drec = serve_phase("dense", engine, trace, ops)
     same("dense", dense)
     assert dlaunches["flash_decode"] > 0 and \
         dlaunches["flash_decode_paged"] == 0, dlaunches
-    kept["flash_decode_dense"] = dkept["flash_decode"]
+    kept["flash_decode_dense"] = drec.kept["flash_decode"]
     del engine, params
     torch.cuda.empty_cache()
-    return launches, kept, priv, cfg.n_heads
+    return launches, kept, priv, cfg.n_heads, rec.split
 
 
 # ------------------------------------------------------------- phase 4
-def kernels(dev, launches, kept):
+def kernels(dev, launches, kept, split):
     from repro_torch.kernels import ops, ref
 
     timer = Timer(dev)
@@ -573,10 +598,29 @@ def kernels(dev, launches, kept):
         f"max abs err {errs[('flash_attention_bf16', torch.bfloat16)]:.3g}")
     rows.append(dict(
         name="flash_prefill", shape=list(q.shape) + [k.shape[1]],
+        call="fresh", launches_split=split,
         max_abs_err=errs[("flash_attention", q.dtype)],
         max_abs_err_selected=errs[("flash_attention_selected", q.dtype)],
         max_abs_err_f32=errs[("flash_attention", torch.float32)],
         **times[q.dtype]))
+    # the recovery's selective call (f32, from round 1 on): round 2's
+    q, k, v, q_pos, window, kv_len = attn_case("flash_attention_selected")
+    assert q.dtype == torch.float32 and kv_len is None, q.dtype
+    ts = prefill_times(timer, q, k, v, q_pos, window, kv_len)
+    blocks = [torch.unique(r // 32).tolist() for r in q_pos]
+    say(f"[kernel] flash_prefill at the recovery's selective call, q "
+        f"{list(q.shape)} at the selected positions (blocks of 32 a row: "
+        f"{blocks}) over {k.shape[1]} rows, {q.dtype}: {times_line(ts)}, max "
+        f"abs err {errs[('flash_attention_selected', q.dtype)]:.3g}; "
+        f"launches {split['f32 selective']} selective, "
+        f"{split['f32 fresh']} f32 fresh, {split['bf16']} bf16 "
+        f"({launches['flash_prefill']} in all)")
+    rows.append(dict(
+        name="flash_prefill", shape=list(q.shape) + [k.shape[1]],
+        call="selective", launches=split["f32 selective"],
+        launches_split=split,
+        max_abs_err=errs[("flash_attention_selected", q.dtype)],
+        max_abs_err_f32=errs[("flash_attention_selected", q.dtype)], **ts))
 
     # ---- flash_decode_paged -----------------------------------------
     _, args, kw = kept["flash_decode_paged"]
@@ -625,7 +669,7 @@ def kernels(dev, launches, kept):
         **ptimes[q.dtype]))
 
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r.setdefault("launches", launches[r["name"]])
     return table_rows(rows)
 
 
@@ -722,7 +766,7 @@ def paged_prefill(dev, priv, H):
         n_bytes = (nbytes(qq, tk, tv, pidx) + nbytes(qq)
                    + 2 * pages * bt * KV * hd * pk.element_size())
         flops = 4 * hd * H * B * S * (S + 1) // 2
-        bms, by = bound(n_bytes, flops, dt)
+        bms, by = bound(n_bytes, flops, dt, split_tf32=True)
         t = [timer(f) for f in (
             lambda: ops.flash_prefill_paged(qq, pk, pv, pidx, tk, tv,
                                             span_len=span),
@@ -739,7 +783,8 @@ def paged_prefill(dev, priv, H):
                 qq, pk, pv, pidx, tk, tv, span_len=span)),
             library_ms=timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)),
-            bound_ms=bms, bound_by=by)
+            bound_ms=bms, bound_by=by,
+            bound_cuda_core_ms=bound(n_bytes, flops, dt)[0])
         tm = times[dt]
         say(f"[kernel] flash_prefill_paged {dt}, q [{B},{S},{H},{hd}] over "
             f"{nbh} pages + {T} tail rows a sequence: paged "
@@ -747,7 +792,8 @@ def paged_prefill(dev, priv, H):
             f"on the gathered rows {tm['dense'][0]:.4f} / "
             f"{tm['dense'][1]:.4f} ms (in turns paged, dense, dense, paged), "
             f"plain {tm['plain_ms']:.4f}, SDPA over the gathered rows "
-            f"{tm['library_ms']:.4f}, bound {bms:.4f} by {by}")
+            f"{tm['library_ms']:.4f}, bound {bms:.4f} by {by} (CUDA cores "
+            f"{tm['bound_cuda_core_ms']:.4f})")
     dt = priv.pool_k.dtype
     tm = times[dt]
     return dict(
@@ -756,7 +802,7 @@ def paged_prefill(dev, priv, H):
         max_abs_err_f32=errs[("aligned", torch.float32)],
         ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"],
         bound_by=tm["bound_by"], library_ms=tm["library_ms"],
-        launches=launches)
+        bound_cuda_core_ms=tm["bound_cuda_core_ms"], launches=launches)
 
 
 def table_rows(rows):
@@ -766,15 +812,18 @@ def table_rows(rows):
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=REPLACES[r["name"]])
-        say(f"[kernel] {r['name']}: shape {r['shape']}, {r['ms']:.4f} ms "
-            f"(plain {r['plain_ms']:.4f}, library {r['library_ms']}, bound "
-            f"{r['bound_ms']:.4f} by {r['bound_by']}), max abs err "
+        call = f" ({r['call']} call)" if "call" in r else ""
+        say(f"[kernel] {r['name']}{call}: shape {r['shape']}, "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']}), max abs err "
             f"{r['max_abs_err']:.3g} at the path's dtype / "
             f"{r['max_abs_err_f32']:.3g} in f32, "
             f"{r['launches']} launches on the main path")
         table.append({k: r[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "call", "launches_split", "bound_cuda_core_ms") if k in r})
     return table
 
 
@@ -1235,8 +1284,8 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = card()
     build()
-    launches, kept, priv, n_heads = main_path(dev)
-    table = kernels(dev, launches, kept)
+    launches, kept, priv, n_heads, split = main_path(dev)
+    table = kernels(dev, launches, kept, split)
     table += table_rows([paged_prefill(dev, priv, n_heads)])
     del priv
     hlaunches, hkept = hybrid(dev)

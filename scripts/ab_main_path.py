@@ -7,6 +7,18 @@ memory (its ``[main]`` lines), the ``[dense]`` loop's decode ms per round,
 and the hybrid rounds' recover and decode ms and serve seconds as one
 JSON line.
 
+Each run also times every attention call of the main path's served trace
+with CUDA events (``ops.flash_attention`` wrapped; one event pair a call,
+no synchronisation on the served path): ``recover_attn_ms`` is the sum
+over the timed recovery of each round (its last 28 calls; the first 28
+are the untimed warm-up of the round's new shape), split into the fresh
+layers' calls (``_fresh_ms``) and the selective layers' (``_sel_ms``).
+It saves the main path's greedy tokens and first-token logits to
+``build/ab_main_outputs.npz`` in its checkout; at the end, every other
+checkout's tokens and logits are compared with the first one's (tokens
+that differ, with the first root's top-2 logit margin where the first
+token of a row differs, and the largest first-token logit difference).
+
     python3 scripts/ab_main_path.py PARENT . . PARENT
 
 Each argument is the root of a checkout that holds ``chip_smoke.py``
@@ -20,10 +32,55 @@ import json
 import re
 import subprocess
 import sys
+from pathlib import Path
 
-CODE = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke as c;"
-        " c.build(); c.main_path(torch.device('cuda'));"
-        " c.hybrid(torch.device('cuda'))")
+import numpy as np
+
+CODE = r"""
+import json, sys, numpy as np, torch
+sys.path.insert(0, '.')
+import chip_smoke as c
+from repro_torch.kernels import ops
+from repro_torch.serving import ServingEngine
+calls, served = [], []
+attention = ops.flash_attention
+def timed_attention(q, k, *a, **kw):
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = attention(q, k, *a, **kw)
+    e.record()
+    calls.append((len(served), q.shape[1] == k.shape[1], s, e))
+    return out
+ops.flash_attention = timed_attention
+serve = ServingEngine.serve
+def serving(self, *a, **kw):
+    stats = serve(self, *a, **kw)
+    served.append(stats)
+    return stats
+ServingEngine.serve = serving
+dev = torch.device('cuda')
+c.build()
+c.main_path(dev)
+torch.cuda.synchronize()
+main = [x for x in calls if x[0] == 0]
+L = 28
+assert len(main) == 2 * L * len(served[0]), len(main)
+attn = {'recover_attn_ms': [], 'recover_attn_fresh_ms': [],
+        'recover_attn_sel_ms': []}
+for r in range(len(served[0])):
+    timed = main[(2 * r + 1) * L:(2 * r + 2) * L]
+    ms = [(fresh, s.elapsed_time(e)) for _, fresh, s, e in timed]
+    attn['recover_attn_ms'].append(sum(t for _, t in ms))
+    attn['recover_attn_fresh_ms'].append(sum(t for f, t in ms if f))
+    attn['recover_attn_sel_ms'].append(sum(t for f, t in ms if not f))
+np.savez('build/ab_main_outputs.npz',
+         outputs=np.stack([st.outputs for st in served[0]]),
+         first_logits=np.stack([st.first_logits for st in served[0]]))
+print('[attn] ' + json.dumps(attn), flush=True)
+ops.flash_attention = attention
+c.hybrid(dev)
+"""
 
 
 def run(root: str) -> dict:
@@ -39,9 +96,11 @@ def run(root: str) -> dict:
                     if line.startswith("[hybrid]"))
     dense = "\n".join(line for line in text.splitlines()
                       if line.startswith("[dense]"))
+    attn = json.loads(re.search(r"^\[attn\] (.*)$", text, re.M).group(1))
     return {"root": root,
             "recover_ms": [float(x) for x in
                            re.findall(r"\(recover ([0-9.]+)", main)],
+            **attn,
             "restore_ms": [float(x) for x in
                            re.findall(r"restore ([0-9.]+), decode", main)],
             "decode_ms": [float(x) for x in
@@ -60,9 +119,37 @@ def run(root: str) -> dict:
                                               hyb).group(1))}
 
 
+def compare(base: str, other: str) -> dict:
+    """Greedy tokens and first-token logits of ``other``'s main path
+    against ``base``'s, per round."""
+    a = np.load(Path(base) / "build" / "ab_main_outputs.npz")
+    b = np.load(Path(other) / "build" / "ab_main_outputs.npz")
+    rounds = []
+    for r in range(len(a["outputs"])):
+        ta, tb = a["outputs"][r], b["outputs"][r]
+        la, lb = a["first_logits"][r], b["first_logits"][r]
+        diff = np.argwhere(ta != tb)
+        flips = []
+        for row, pos in diff[:16].tolist():
+            flip = {"row": row, "token": pos}
+            if pos == 0:
+                top2 = np.sort(la[row])[-2:]
+                flip["margin"] = float(top2[1] - top2[0])
+            flips.append(flip)
+        rounds.append({"tokens_equal": bool(not len(diff)),
+                       "tokens_differ": int(len(diff)), "flips": flips,
+                       "first_logits_max_abs_diff":
+                           float(np.abs(la - lb).max())})
+    return {"base": base, "other": other, "rounds": rounds}
+
+
 def main() -> int:
-    for root in sys.argv[1:]:
+    roots = sys.argv[1:]
+    for root in roots:
         print(json.dumps(run(root)), flush=True)
+    for other in dict.fromkeys(roots[1:]):
+        if other != roots[0]:
+            print(json.dumps(compare(roots[0], other)), flush=True)
     return 0
 
 

@@ -14,17 +14,20 @@
 //
 // What bounds it at the serving path's shapes (S of a few hundred, hd 128):
 // in bf16 the bytes (0.021 ms for q [8,544,28,128] causal, against 0.017 ms
-// of tensor-core operations); the tile function runs both products on the
-// tensor cores (mma.sync over a cp.async ring of bf16 K/V tiles), so
-// what it still lacks is wgmma's rate. In f32 the operations (0.25 ms at
-// 67 TFLOP/s): the f32 path stays on the CUDA cores, as TF32 would break
-// the f32 tolerance. See prefill_attn.cuh and PERF.md.
+// of tensor-core operations); in f32 the operations (three TF32 products
+// a pair: 0.103 ms at 495 TFLOP/s, against 0.254 ms of plain f32 on the
+// CUDA cores). Both types run on the tensor cores: mma.sync over a
+// cp.async ring of K/V tiles in their own type, f32 as split TF32
+// (3xTF32), which keeps the f32 tolerance where one TF32 product would
+// not. What the tile function still lacks is wgmma's rate. See
+// prefill_attn.cuh and PERF.md.
 //
 // Design: one block of 128 threads per (64-row q tile, query head, batch
 // row), running prefill::attend (prefill_attn.cuh, whose tile code the
 // paged prefill kernel shares) over a dense KV: column c is row c of batch
-// row b, loaded as zeros at c >= Sk. A bf16 launch takes the ring's
-// dynamic shared memory (prefill::smem_bytes, 68 KB at head dim 128).
+// row b, loaded as zeros at c >= Sk. A launch takes the tile function's
+// dynamic shared memory (prefill::smem_bytes at head dim 128: the ring,
+// 68 KB in bf16; the ring and Q, 101 KB in f32).
 #include "prefill_attn.cuh"
 
 using prefill::kBQ;
@@ -73,12 +76,10 @@ static int launch_hd(dim3 grid, const T* q, const T* k, const T* v, T* out,
                      int H, int KV, int window, float scale, bool vec,
                      cudaStream_t st) {
   constexpr int smem = prefill::smem_bytes<T, HD>();
-  if (smem > 0) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_prefill_kernel<T, HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_prefill_kernel<T, HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
   flash_prefill_kernel<T, HD><<<grid, kThreads, smem, st>>>(
       q, k, v, out, q_pos, kv_len, Sq, Sk, H, KV, window, scale, vec);
   return (int)cudaGetLastError();

@@ -17,8 +17,8 @@
 // _softmax_update's (flash_prefill.py:46-66), in f32.
 //
 // What bounds it: as the dense prefill kernel (bytes in bf16, 0.010 ms at
-// the main path's round-2 pool, q [8,256,28,128]; f32 operations on the
-// CUDA cores), plus one page-table read per staged row (in bf16, each
+// the main path's round-2 pool, q [8,256,28,128]; operations in f32, three
+// TF32 products a pair), plus one page-table read per staged row (each
 // row's 16-byte words are gathered by cp.async from wherever its page
 // lies).
 //
@@ -92,12 +92,10 @@ static int launch_hd(dim3 grid, const T* q, const T* pk, const T* pv,
                      int span, int tail_rows, int window, int causal,
                      float scale, bool vec, cudaStream_t st) {
   constexpr int smem = prefill::smem_bytes<T, HD>();
-  if (smem > 0) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_prefill_paged_kernel<T, HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_prefill_paged_kernel<T, HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
   flash_prefill_paged_kernel<T, HD><<<grid, kThreads, smem, st>>>(
       q, pk, pv, page_idx, tk, tv, out, q_pos, Sq, H, KV, bt, nbh, span,
       tail_rows, window, causal, scale, vec);

@@ -1,6 +1,7 @@
 // Flash attention for many queries, shared by the dense
 // (flash_prefill.cu) and the paged (flash_prefill_paged.cu) prefill
-// kernels: prefill::attend, one tile function per element type.
+// kernels: prefill::attend, one tile function on the tensor cores for
+// both element types, with a product policy per type.
 //
 // One block of 128 threads serves one (64-row q tile, query head, batch
 // row) and loops over KV tiles of the KV head h / G. Tiles wholly outside
@@ -11,40 +12,55 @@
 // (src/repro/kernels/flash_prefill.py:46-66), in f32, with the output
 // acc / max(l, 1e-30) rounded to T once.
 //
-// bf16 (attend_mma): on the tensor cores. K/V stay bf16 in shared memory,
-// in a ring of two 64-row stages filled by 16-byte cp.async copies, so
-// tile t+1 is in flight while tile t is computed (rows past the storage
-// are zero-filled by the copy's src-size 0 form; unaligned rows are
-// staged with plain loads into the same layout). Rows are padded by 16
-// bytes, so the 8 row addresses of every ldmatrix fall in 8 different
-// bank groups. Each of the 4 warps owns 16 query rows and keeps their Q
-// fragments in registers for the whole KV loop. Q*K^T is
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate) on ldmatrix fragments of K;
-// P*V is the same mma on ldmatrix.trans fragments of V, with P entering
-// as two bf16 terms, hi = bf16(p) and lo = bf16(p - hi), so about 16 bits
-// of the f32 probabilities survive (the TPU kernel multiplies P*V in
-// f32). Row max and row sum reduce over the 4 lanes that share a row.
-// What bounds it: at [8,544,28,128] causal the bytes bound is 0.021 ms
-// and the tensor-core bound 0.017 ms (counting only allowed pairs); the
-// kernel does ~1.9x those operations (whole diagonal tiles, two P*V
-// products) through mma.sync, at a fraction of the rate wgmma reaches,
-// and reads each K/V fragment from shared memory once per 16 query rows.
-// mma.sync rather than wgmma: its fragments are plain register layouts
-// that ldmatrix fills from a padded tile, where wgmma wants its B tiles
-// in a swizzled layout named by shared-memory descriptors. wgmma (one
-// warpgroup per 64-row q tile, P from registers) and TMA for the dense
-// rows are the next step; the paged rows are gathered one by one, which
-// TMA's tiled copies do not express.
+// The skeleton (attend_tc): K/V stay in their own type in shared memory,
+// in a ring of kStages tiles of kBK rows filled by 16-byte cp.async
+// copies, so the next tile is in flight while one is computed (rows past
+// the storage are zero-filled by the copy's src-size 0 form; unaligned
+// rows are staged with plain loads into the same layout). Each of the 4
+// warps owns 16 query rows and keeps their Q for the whole KV loop. Lane
+// l of warp w holds query rows r0 = 16 w + l / 4 and r1 = r0 + 8 and, of
+// each 8-column slice of scores and outputs, columns 2 (l % 4) and
+// 2 (l % 4) + 1: the m16n8 accumulator layout. Row max and row sum reduce
+// over the 4 lanes that share a row. A policy (Bf16Op, Tf32Op) supplies
+// the tile sizes, the row pitches, where Q lives, and the two products
+// S = Q K^T and O += P V on its fragments; each loads a k-step's K or V
+// fragments before the products that use them.
 //
-// f32 (attend_simt): on the CUDA cores, since TF32 products keep ~10
-// mantissa bits and would break the f32 tolerance (1e-4). Two threads
-// share a query row, each holding half of q and of the accumulator in
-// registers (interleaved float2 pairs, so the pair reads two adjacent
-// 8-byte words of a K/V row: no bank conflict, and the 16 rows of a warp
-// broadcast). 32-row KV tiles are staged in shared memory as f32 (loaded
-// in 16-byte words where the rows are aligned); the scores of a tile are
-// scalar FMA loops. Bound by f32 FMA issue (0.25 ms of operations at
-// [8,544,28,128]).
+// bf16 (Bf16Op): Q's fragments in registers; mma.sync.m16n8k16 (bf16 in,
+// f32 accumulate) on ldmatrix fragments of 64-row tiles, two stages; P*V
+// on ldmatrix.trans fragments of V, with P entering as two bf16 terms, hi
+// = bf16(p) and lo = bf16(p - hi), so about 16 bits of the f32
+// probabilities survive (the TPU kernel multiplies P*V in f32). Rows are
+// padded by 16 bytes, so the 8 row addresses of every ldmatrix fall in 8
+// different bank groups. What
+// bounds it: at [8,544,28,128] causal the bytes bound is 0.021 ms and the
+// tensor-core bound 0.017 ms (counting only allowed pairs); the kernel
+// does ~1.9x those operations (whole diagonal tiles, two P*V products)
+// through mma.sync, at a fraction of the rate wgmma reaches. mma.sync
+// rather than wgmma: its fragments are plain register layouts that
+// ldmatrix fills from a padded tile, where wgmma wants its B tiles in a
+// swizzled layout named by shared-memory descriptors.
+//
+// f32 (Tf32Op): split TF32 (3xTF32) mma.sync.m16n8k8 on 32-row f32 tiles,
+// two stages. One TF32 product keeps ~11 significant bits, which breaks
+// the f32 tolerance (1e-4); so every operand x is split once as hi =
+// tf32(x) and lo = tf32(x - hi) (round to nearest, ties away), and each
+// product is lo*hi + hi*lo, then hi*hi, into the f32 accumulator (lo*lo,
+// ~2^-22 of the product, is dropped). Each warp stages its 16 rows of Q
+// in shared memory once (in registers a 128-wide head takes 64 a lane,
+// and the kernel spilled) and splits them at each k-step, K and V as
+// their fragments leave shared memory, P in registers after the
+// exponent. ldmatrix is b16-only, so the B fragments are 8-byte
+// shared loads: a k-step of Q K^T takes head dims in the order (0, 2, 4,
+// 6, 1, 3, 5, 7) so each lane's two K values are adjacent (K rows pitched
+// HD + 8 floats: the 16 lanes of a half-warp hit 32 banks); a k-step of
+// P V takes its 8 keys in the same order, which is the accumulator layout
+// of S (P needs no shuffle), and an output slice pair (2e, 2e + 1) takes
+// dims 16 e + 2 n and 16 e + 2 n + 1, so each lane's two V values are
+// adjacent (V rows pitched HD + 4 floats) and each lane stores 4
+// contiguous output dims. What bounds it: operations, three TF32 products
+// a pair at 495 TFLOP/s (0.103 ms at [8,544,28,128] causal; 0.254 ms at
+// the CUDA cores' 67 TFLOP/s of plain f32).
 //
 // Column c sits at position c. A query at position p may see column c iff
 // c < rows.len(), p - c < window, and, when causal, p - c >= 0. The two
@@ -64,169 +80,13 @@
 
 #include "common.cuh"
 
+
 namespace prefill {
 
 constexpr int kBQ = 64;       // query rows per block
 constexpr int kThreads = 128;
 
-// ---------------------------------------------------------------- f32
-constexpr int kBK = 32;       // KV rows per shared-memory tile
-
-// q and out are [B, Sq, H, HD]; q_pos is [B, Sq] (null: row i sits at
-// position i). (tile, h, b) name this block's q tile, query head and batch
-// row; rows addresses batch row b at KV head h / (H / KV). vec: every row
-// the Rows hand out is 16-byte aligned, so tiles are staged in 16-byte
-// words (else element by element; the staged values are the same).
-template <typename T, int HD, typename Rows>
-__device__ __forceinline__ void attend_simt(const T* __restrict__ q,
-                                            T* __restrict__ out,
-                                            const int* __restrict__ q_pos,
-                                            int tile, int h, int b, int Sq,
-                                            int H, int window, bool causal,
-                                            float scale, bool vec,
-                                            const Rows& rows) {
-  constexpr int NP = HD / 4;   // float2 pairs held per thread
-  __shared__ __align__(16) float Ks[kBK][HD];
-  __shared__ __align__(16) float Vs[kBK][HD];
-  __shared__ int s_qmin, s_qmax;
-
-  const int tid = threadIdx.x;
-  const int part = tid & 1;
-  const int row = tile * kBQ + (tid >> 1);
-  const bool valid_row = row < Sq;
-  const int qp = !valid_row ? 0 : q_pos ? q_pos[(long long)b * Sq + row] : row;
-  const int klen = rows.len();
-
-  if (tid == 0) { s_qmin = INT_MAX; s_qmax = INT_MIN; }
-  __syncthreads();
-  if (valid_row && part == 0) { atomicMin(&s_qmin, qp); atomicMax(&s_qmax, qp); }
-
-  float2 qv[NP], acc[NP];
-  const long long qo = (((long long)b * Sq + row) * H + h) * HD;
-#pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    const int d = 4 * i + 2 * part;
-    qv[i] = valid_row ? make_float2(to_f32(q[qo + d]), to_f32(q[qo + d + 1]))
-                      : make_float2(0.f, 0.f);
-    acc[i] = make_float2(0.f, 0.f);
-  }
-  float m = kNegInf, l = 0.f;
-  __syncthreads();
-
-  const long long lo = (long long)s_qmin - window + 1;
-  const int c_lo = lo > 0 ? (int)lo : 0;
-  const int c_hi = causal ? min(klen, s_qmax + 1) : klen;   // exclusive
-  for (int c0 = (c_lo / kBK) * kBK; c0 < c_hi; c0 += kBK) {
-    __syncthreads();
-    if (vec) {
-      // 16-byte words: one row address per word, float4 stores
-      constexpr int kVec = 16 / sizeof(T);
-      constexpr int kWords = HD / kVec;
-      for (int idx = tid; idx < kBK * kWords; idx += kThreads) {
-        const int j = idx / kWords, w = idx % kWords;
-        const T* kr;
-        const T* vr;
-        uint4 kw = make_uint4(0u, 0u, 0u, 0u), vw = kw;
-        if (rows.row(c0 + j, kr, vr)) {
-          kw = reinterpret_cast<const uint4*>(kr)[w];
-          vw = reinterpret_cast<const uint4*>(vr)[w];
-        }
-        float4* kd = reinterpret_cast<float4*>(&Ks[j][w * kVec]);
-        float4* vd = reinterpret_cast<float4*>(&Vs[j][w * kVec]);
-#pragma unroll
-        for (int e = 0; e < kVec; e += 4) {
-          kd[e / 4] = make_float4(word_elem<T>(kw, e), word_elem<T>(kw, e + 1),
-                                  word_elem<T>(kw, e + 2),
-                                  word_elem<T>(kw, e + 3));
-          vd[e / 4] = make_float4(word_elem<T>(vw, e), word_elem<T>(vw, e + 1),
-                                  word_elem<T>(vw, e + 2),
-                                  word_elem<T>(vw, e + 3));
-        }
-      }
-    } else {
-      for (int idx = tid; idx < kBK * HD; idx += kThreads) {
-        const int j = idx / HD, d = idx % HD;
-        const T* kr;
-        const T* vr;
-        const bool have = rows.row(c0 + j, kr, vr);
-        Ks[j][d] = have ? to_f32(kr[d]) : 0.f;
-        Vs[j][d] = have ? to_f32(vr[d]) : 0.f;
-      }
-    }
-    __syncthreads();
-
-    float s[kBK];
-    float tmax = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      const float2* kr = reinterpret_cast<const float2*>(Ks[j]);
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        const float2 kk = kr[2 * i + part];
-        dot += qv[i].x * kk.x + qv[i].y * kk.y;
-      }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      const int c = c0 + j;
-      const int dl = qp - c;
-      const bool ok = valid_row && (!causal || dl >= 0) && dl < window &&
-                      c < klen;
-      s[j] = ok ? dot * scale : kNegInf;
-      tmax = fmaxf(tmax, s[j]);
-    }
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);
-    float lsum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      s[j] = expf(s[j] - m_new);
-      lsum += s[j];
-    }
-    l = alpha * l + lsum;
-#pragma unroll
-    for (int i = 0; i < NP; ++i) { acc[i].x *= alpha; acc[i].y *= alpha; }
-#pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      const float p = s[j];
-      const float2* vr = reinterpret_cast<const float2*>(Vs[j]);
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        const float2 vv = vr[2 * i + part];
-        acc[i].x += p * vv.x;
-        acc[i].y += p * vv.y;
-      }
-    }
-    m = m_new;
-  }
-
-  if (valid_row) {
-    const float inv = 1.0f / fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      const int d = 4 * i + 2 * part;
-      out[qo + d] = from_f32<T>(acc[i].x * inv);
-      out[qo + d + 1] = from_f32<T>(acc[i].y * inv);
-    }
-  }
-}
-
 // --------------------------------------------------------------- bf16
-constexpr int kBKV = 64;      // KV rows per ring stage
-constexpr int kStages = 2;
-
-// Dynamic shared memory of the bf16 tile function: kStages x (K, V) x
-// kBKV rows of HD + 8 bf16 (16 bytes of padding a row).
-template <int HD>
-constexpr int mma_smem_bytes() {
-  return kStages * 2 * kBKV * (HD + 8) * (int)sizeof(__nv_bfloat16);
-}
-
-// Dynamic shared memory a launch of prefill::attend<T, HD> needs.
-template <typename T, int HD>
-constexpr int smem_bytes() {
-  return std::is_same<T, __nv_bfloat16>::value ? mma_smem_bytes<HD>() : 0;
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -289,26 +149,266 @@ __device__ __forceinline__ void split_pair(float p0, float p1, uint32_t& hi,
                                        p1 - __high2float(h)));
 }
 
-// The contract of attend_simt, for bf16, on the tensor cores. Lane l of
-// warp w holds query rows r0 = 16 w + l / 4 and r1 = r0 + 8 of the tile
-// and, of each 8-column slice of scores and outputs, columns 2 (l % 4)
-// and 2 (l % 4) + 1: the m16n8 accumulator layout.
-template <int HD, typename Rows>
-__device__ __forceinline__ void attend_mma(const __nv_bfloat16* __restrict__ q,
-                                           __nv_bfloat16* __restrict__ out,
-                                           const int* __restrict__ q_pos,
-                                           int tile, int h, int b, int Sq,
-                                           int H, int window, bool causal,
-                                           float scale, bool vec,
-                                           const Rows& rows) {
+template <int HD>
+struct Bf16Op {
   using T = __nv_bfloat16;
-  constexpr int P = HD + 8;          // shared row pitch, elements
-  constexpr int NK = HD / 16;        // k-steps of Q K^T
-  constexpr int ND = HD / 8;         // 8-column slices of the output
-  constexpr int NS = kBKV / 8;       // 8-column slices of a score tile
-  constexpr int kWords = HD / 8;     // 16-byte words a row
+  static constexpr int kBK = 64;        // KV rows per ring stage
+  static constexpr int kStages = 2;
+  static constexpr int kPK = HD + 8;    // shared row pitches, elements
+  static constexpr int kPV = HD + 8;
+  static constexpr int kPQ = 0;         // Q in registers
+
+  uint32_t qf[HD / 16][4];              // Q's A fragments, k-steps of 16
+
+  __device__ __forceinline__ void load_q(const T* q, long long o0,
+                                         long long o1, bool v0, bool v1,
+                                         int tg, const T*) {
+    const bool qal = (reinterpret_cast<uintptr_t>(q) & 3) == 0;
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      const int c = 16 * ks + 2 * tg;
+      qf[ks][0] = v0 ? load_pair(q + o0 + c, qal) : 0u;
+      qf[ks][1] = v1 ? load_pair(q + o1 + c, qal) : 0u;
+      qf[ks][2] = v0 ? load_pair(q + o0 + c + 8, qal) : 0u;
+      qf[ks][3] = v1 ? load_pair(q + o1 + c + 8, qal) : 0u;
+    }
+  }
+
+  // s += Q K^T over the tile's kBK columns
+  __device__ __forceinline__ void scores(float (&s)[kBK / 8][4], const T* Ks,
+                                         int lane) const {
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      uint32_t kf[kBK / 16][4];
+#pragma unroll
+      for (int np = 0; np < kBK / 16; ++np)
+        ldmatrix_x4(kf[np], Ks + (16 * np + (lane >> 4) * 8 + (lane & 7)) *
+                                     kPK + 16 * ks + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int np = 0; np < kBK / 16; ++np) {
+        mma_bf16(s[2 * np], qf[ks], kf[np][0], kf[np][1]);
+        mma_bf16(s[2 * np + 1], qf[ks], kf[np][2], kf[np][3]);
+      }
+    }
+  }
+
+  // acc += P V, P as hi + lo
+  __device__ __forceinline__ void pv(float (&acc)[HD / 8][4],
+                                     const float (&s)[kBK / 8][4],
+                                     const T* Vs, int lane) const {
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_pair(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_pair(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+      uint32_t vf[HD / 16][4];
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp)
+        ldmatrix_x4_trans(vf[dp], Vs + (16 * kk + ((lane >> 3) & 1) * 8 +
+                                        (lane & 7)) * kPV +
+                                      16 * dp + (lane >> 4) * 8);
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        mma_bf16(acc[2 * dp], ph, vf[dp][0], vf[dp][1]);
+        mma_bf16(acc[2 * dp], pl, vf[dp][0], vf[dp][1]);
+        mma_bf16(acc[2 * dp + 1], ph, vf[dp][2], vf[dp][3]);
+        mma_bf16(acc[2 * dp + 1], pl, vf[dp][2], vf[dp][3]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(T* out, long long o0, long long o1,
+                                        const float (&acc)[HD / 8][4],
+                                        float d0, float d1, bool v0, bool v1,
+                                        int tg) const {
+    const bool oal = (reinterpret_cast<uintptr_t>(out) & 3) == 0;
+#pragma unroll
+    for (int d = 0; d < HD / 8; ++d) {
+      const int c = 8 * d + 2 * tg;
+      if (v0) store_pair(out + o0 + c, acc[d][0] / d0, acc[d][1] / d0, oal);
+      if (v1) store_pair(out + o1 + c, acc[d][2] / d1, acc[d][3] / d1, oal);
+    }
+  }
+};
+
+// ---------------------------------------------------------------- f32
+// x as hi + lo, both TF32 (10 stored mantissa bits), each rounded to
+// nearest with ties away from zero: the bits plus half a TF32 ulp
+// (0x1000), masked with 0xffffe000, which is what cvt.rna.tf32.f32 gives
+// for finite x in two integer instructions (cvt.rna adds NaN and infinity
+// checks: ~5 instructions on sm_90a). x - hi is exact in f32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// d += a * b: one m16n8k8 tile, TF32 operands, f32 accumulator.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b in split TF32: the cross terms lo*hi and hi*lo first, then
+// hi*hi.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+template <int HD>
+struct Tf32Op {
+  using T = float;
+  static constexpr int kBK = 32;        // KV rows per ring stage
+  static constexpr int kStages = 2;
+  static constexpr int kPK = HD + 8;    // = 8 (mod 32) words: 8-byte K reads
+  static constexpr int kPV = HD + 4;    // = 4 (mod 16) words: 8-byte V reads
+  static constexpr int kPQ = HD + 8;    // Q in shared memory, pitched as K
+
+  const float* qw;                      // this warp's 16 rows of Q
+
+  __device__ __forceinline__ void load_q(const T*, long long, long long,
+                                         bool, bool, int, const T* qs) {
+    qw = qs;
+  }
+
+  // s += Q K^T over the tile's kBK columns. k-step ks takes head dims
+  // 8 ks + 2 (l % 4) (A and B column l % 4) and + 1 (column l % 4 + 4)
+  __device__ __forceinline__ void scores(float (&s)[kBK / 8][4], const T* Ks,
+                                         int lane) const {
+    const int g = lane >> 2, tg = lane & 3;
+#pragma unroll
+    for (int ks = 0; ks < HD / 8; ++ks) {
+      const float2 a = *reinterpret_cast<const float2*>(
+          qw + g * kPQ + 8 * ks + 2 * tg);
+      const float2 b = *reinterpret_cast<const float2*>(
+          qw + (g + 8) * kPQ + 8 * ks + 2 * tg);
+      uint32_t ah[4], al[4];
+      split_tf32(a.x, ah[0], al[0]);    // row r0, column l % 4
+      split_tf32(b.x, ah[1], al[1]);    // row r1
+      split_tf32(a.y, ah[2], al[2]);    // row r0, column l % 4 + 4
+      split_tf32(b.y, ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        // column g of slice j: key 8 j + g
+        const float2 k = *reinterpret_cast<const float2*>(
+            Ks + (8 * j + g) * kPK + 8 * ks + 2 * tg);
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(k.x, bh0, bl0);
+        split_tf32(k.y, bh1, bl1);
+        mma_3xtf32(s[j], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+
+  // acc += P V. k-step kk is score slice kk, keys in the order (0, 2, 4,
+  // 6, 1, 3, 5, 7): column l % 4 of P's A fragment is key 2 (l % 4), held
+  // in s[kk][0] / [2], and column l % 4 + 4 is key 2 (l % 4) + 1, in
+  // s[kk][1] / [3]. Output slices 2 e and 2 e + 1 take dims 16 e + 2 n and
+  // 16 e + 2 n + 1 for their column n.
+  __device__ __forceinline__ void pv(float (&acc)[HD / 8][4],
+                                     const float (&s)[kBK / 8][4],
+                                     const T* Vs, int lane) const {
+    const int g = lane >> 2, tg = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[kk][0], ph[0], pl[0]);
+      split_tf32(s[kk][2], ph[1], pl[1]);
+      split_tf32(s[kk][1], ph[2], pl[2]);
+      split_tf32(s[kk][3], ph[3], pl[3]);
+      const T* const va = Vs + (8 * kk + 2 * tg) * kPV + 2 * g;   // key 2 tg
+      const T* const vb = va + kPV;                               // + 1
+      float2 fa[HD / 16], fb[HD / 16];
+#pragma unroll
+      for (int e = 0; e < HD / 16; ++e) {
+        fa[e] = *reinterpret_cast<const float2*>(va + 16 * e);
+        fb[e] = *reinterpret_cast<const float2*>(vb + 16 * e);
+      }
+#pragma unroll
+      for (int e = 0; e < HD / 16; ++e) {
+        const float2 a = fa[e], b = fb[e];
+        uint32_t ah, al, bh, bl;
+        split_tf32(a.x, ah, al);
+        split_tf32(b.x, bh, bl);
+        mma_3xtf32(acc[2 * e], ph, pl, ah, bh, al, bl);
+        split_tf32(a.y, ah, al);
+        split_tf32(b.y, bh, bl);
+        mma_3xtf32(acc[2 * e + 1], ph, pl, ah, bh, al, bl);
+      }
+    }
+  }
+
+  // rows r0 and r1, dims 16 e + 4 (l % 4) .. + 3 of each slice pair, as
+  // 16-byte stores (out is the wrappers' torch.empty_like: aligned)
+  __device__ __forceinline__ void store(T* out, long long o0, long long o1,
+                                        const float (&acc)[HD / 8][4],
+                                        float d0, float d1, bool v0, bool v1,
+                                        int tg) const {
+#pragma unroll
+    for (int e = 0; e < HD / 16; ++e) {
+      const float(&x)[4] = acc[2 * e];
+      const float(&y)[4] = acc[2 * e + 1];
+      const int c = 16 * e + 4 * tg;
+      if (v0)
+        *reinterpret_cast<float4*>(out + o0 + c) =
+            make_float4(x[0] / d0, y[0] / d0, x[1] / d0, y[1] / d0);
+      if (v1)
+        *reinterpret_cast<float4*>(out + o1 + c) =
+            make_float4(x[2] / d1, y[2] / d1, x[3] / d1, y[3] / d1);
+    }
+  }
+};
+
+// The product policy of element type T.
+template <typename T, int HD>
+using OpOf = typename std::conditional<std::is_same<T, __nv_bfloat16>::value,
+                                       Bf16Op<HD>, Tf32Op<HD>>::type;
+
+// Dynamic shared memory a launch of prefill::attend<T, HD> needs: the
+// ring, kStages x (K, V) tiles of kBK padded rows.
+template <typename T, int HD>
+constexpr int smem_bytes() {
+  using Op = OpOf<T, HD>;
+  return (Op::kStages * Op::kBK * (Op::kPK + Op::kPV) + kBQ * Op::kPQ) *
+         (int)sizeof(T);
+}
+
+// ----------------------------------------------------------- skeleton
+// q and out are [B, Sq, H, HD]; q_pos is [B, Sq] (null: row i sits at
+// position i). (tile, h, b) name this block's q tile, query head and batch
+// row; rows addresses batch row b at KV head h / (H / KV). vec: every row
+// the Rows hand out is 16-byte aligned, so tiles are staged in 16-byte
+// words by cp.async (else element by element; the staged values are the
+// same).
+template <typename Op, int HD, typename Rows, typename T = typename Op::T>
+__device__ __forceinline__ void attend_tc(const T* __restrict__ q,
+                                          T* __restrict__ out,
+                                          const int* __restrict__ q_pos,
+                                          int tile, int h, int b, int Sq,
+                                          int H, int window, bool causal,
+                                          float scale, bool vec,
+                                          const Rows& rows) {
+  constexpr int BK = Op::kBK, S = Op::kStages, PK = Op::kPK, PV = Op::kPV;
+  constexpr int ND = HD / 8;             // 8-column slices of the output
+  constexpr int NS = BK / 8;             // 8-column slices of a score tile
+  constexpr int kVec = 16 / (int)sizeof(T);
+  constexpr int kWords = HD / kVec;      // 16-byte words a row
+  constexpr int kStage = BK * (PK + PV); // elements a ring stage
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* const ring = reinterpret_cast<T*>(smem_raw);  // [stage][K, V][kBKV][P]
+  T* const ring = reinterpret_cast<T*>(smem_raw);  // [stage][K | V]
   __shared__ int s_qmin, s_qmax;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -328,16 +428,30 @@ __device__ __forceinline__ void attend_mma(const __nv_bfloat16* __restrict__ q,
   }
 
   const long long o0 = ((qb + r0) * H + h) * HD, o1 = ((qb + r1) * H + h) * HD;
-  const bool qal = (reinterpret_cast<uintptr_t>(q) & 3) == 0;
-  uint32_t qf[NK][4];
-#pragma unroll
-  for (int ks = 0; ks < NK; ++ks) {
-    const int c = 16 * ks + 2 * tg;
-    qf[ks][0] = v0 ? load_pair(q + o0 + c, qal) : 0u;
-    qf[ks][1] = v1 ? load_pair(q + o1 + c, qal) : 0u;
-    qf[ks][2] = v0 ? load_pair(q + o0 + c + 8, qal) : 0u;
-    qf[ks][3] = v1 ? load_pair(q + o1 + c + 8, qal) : 0u;
+  // Op::kPQ > 0: Q in shared memory after the ring, warp w's 16 rows at qs
+  T* const qs = ring + S * kStage + warp * 16 * Op::kPQ;
+  if constexpr (Op::kPQ > 0) {
+    // warp w stages its own 16 rows (zeros past Sq)
+    if ((reinterpret_cast<uintptr_t>(q) & 15) == 0) {
+      for (int idx = lane; idx < 16 * kWords; idx += 32) {
+        const int i = idx / kWords, d = kVec * (idx % kWords);
+        const int r = tile * kBQ + warp * 16 + i;
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);
+        if (r < Sq)
+          x = *reinterpret_cast<const uint4*>(q + ((qb + r) * H + h) * HD + d);
+        *reinterpret_cast<uint4*>(qs + i * Op::kPQ + d) = x;
+      }
+    } else {
+      for (int idx = lane; idx < 16 * HD; idx += 32) {
+        const int i = idx / HD, d = idx % HD, r = tile * kBQ + warp * 16 + i;
+        qs[i * Op::kPQ + d] =
+            r < Sq ? q[((qb + r) * H + h) * HD + d] : from_f32<T>(0.f);
+      }
+    }
+    __syncwarp();
   }
+  Op op;
+  op.load_q(q, o0, o1, v0, v1, tg, qs);
   float acc[ND][4];
 #pragma unroll
   for (int d = 0; d < ND; ++d)
@@ -348,65 +462,60 @@ __device__ __forceinline__ void attend_mma(const __nv_bfloat16* __restrict__ q,
   const long long lo = (long long)s_qmin - window + 1;
   const int c_lo = lo > 0 ? (int)lo : 0;
   const int c_hi = causal ? min(klen, s_qmax + 1) : klen;   // exclusive
-  const int t0 = c_lo / kBKV;
-  const int nt = c_hi > t0 * kBKV ? (c_hi - t0 * kBKV + kBKV - 1) / kBKV : 0;
+  const int t0 = c_lo / BK;
+  const int nt = c_hi > t0 * BK ? (c_hi - t0 * BK + BK - 1) / BK : 0;
 
   // stage tile t into ring slot s, as one cp.async group
   auto stage = [&](int t, int s) {
-    T* const Ks = ring + s * 2 * kBKV * P;
-    T* const Vs = Ks + kBKV * P;
-    const int c0 = t * kBKV;
+    T* const Ks = ring + s * kStage;
+    T* const Vs = Ks + BK * PK;
+    const int c0 = t * BK;
     if (vec) {
-      static_assert(kBKV * kWords % kThreads == 0, "whole words a thread");
+      static_assert(BK * kWords % kThreads == 0, "whole words a thread");
 #pragma unroll
-      for (int it = 0; it < kBKV * kWords / kThreads; ++it) {
+      for (int it = 0; it < BK * kWords / kThreads; ++it) {
         const int idx = tid + it * kThreads;
         const int j = idx / kWords, w = idx % kWords;
         const T* kr;
         const T* vr;
         const bool have = rows.row(c0 + j, kr, vr);
-        cp_async16(Ks + j * P + 8 * w, have ? kr + 8 * w : q, have);
-        cp_async16(Vs + j * P + 8 * w, have ? vr + 8 * w : q, have);
+        cp_async16(Ks + j * PK + kVec * w, have ? kr + kVec * w : q, have);
+        cp_async16(Vs + j * PV + kVec * w, have ? vr + kVec * w : q, have);
       }
     } else {
-      const T zero = __ushort_as_bfloat16((unsigned short)0);
-      for (int idx = tid; idx < kBKV * HD; idx += kThreads) {
+      const T zero = from_f32<T>(0.f);
+      for (int idx = tid; idx < BK * HD; idx += kThreads) {
         const int j = idx / HD, d = idx % HD;
         const T* kr;
         const T* vr;
         const bool have = rows.row(c0 + j, kr, vr);
-        Ks[j * P + d] = have ? kr[d] : zero;
-        Vs[j * P + d] = have ? vr[d] : zero;
+        Ks[j * PK + d] = have ? kr[d] : zero;
+        Vs[j * PV + d] = have ? vr[d] : zero;
       }
     }
     cp_async_commit();
   };
 
-  if (nt > 0) stage(t0, 0);
+  // tiles t0 .. t0 + S - 2 in flight before the loop; an empty group
+  // stands in for a tile past the end, so group i is always tile t0 + i
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < nt) stage(t0 + i, i);
+    else cp_async_commit();
+  }
   for (int i = 0; i < nt; ++i) {
-    if (i + 1 < nt) stage(t0 + i + 1, (i + 1) & 1);
-    else cp_async_commit();             // an empty group keeps the count
-    cp_async_wait<1>();                 // tile t0 + i has landed
+    if (i + S - 1 < nt) stage(t0 + i + S - 1, (unsigned)(i + S - 1) % S);
+    else cp_async_commit();
+    cp_async_wait<S - 1>();             // tile t0 + i has landed
     __syncthreads();
-    const T* const Ks = ring + (i & 1) * 2 * kBKV * P;
-    const T* const Vs = Ks + kBKV * P;
-    const int c0 = (t0 + i) * kBKV;
+    const T* const Ks = ring + ((unsigned)i % S) * kStage;
+    const T* const Vs = Ks + BK * PK;
+    const int c0 = (t0 + i) * BK;
 
-    // S = Q K^T over the tile's 64 columns
     float s[NS][4];
 #pragma unroll
     for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < NK; ++ks) {
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, Ks + (16 * np + (lane >> 4) * 8 + (lane & 7)) * P +
-                            16 * ks + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[ks], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], kf[2], kf[3]);
-      }
-    }
+    op.scores(s, Ks, lane);
 
     // scale, mask, and the row maxima over the 4 lanes of a row
     float mx0 = kNegInf, mx1 = kNegInf;
@@ -452,27 +561,8 @@ __device__ __forceinline__ void attend_mma(const __nv_bfloat16* __restrict__ q,
       acc[d][3] *= a1;
     }
 
-    // O += P V, P as hi + lo
-#pragma unroll
-    for (int kk = 0; kk < kBKV / 16; ++kk) {
-      uint32_t ph[4], pl[4];
-      split_pair(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      split_pair(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      split_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      split_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int dp = 0; dp < ND / 2; ++dp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, Vs + (16 * kk + ((lane >> 3) & 1) * 8 +
-                                    (lane & 7)) * P +
-                                  16 * dp + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], ph, vf[0], vf[1]);
-        mma_bf16(acc[2 * dp], pl, vf[0], vf[1]);
-        mma_bf16(acc[2 * dp + 1], ph, vf[2], vf[3]);
-        mma_bf16(acc[2 * dp + 1], pl, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();                    // slot i & 1 is refilled next
+    op.pv(acc, s, Vs, lane);
+    __syncthreads();                    // slot i % S is refilled next
   }
   cp_async_wait<0>();
 
@@ -481,18 +571,11 @@ __device__ __forceinline__ void attend_mma(const __nv_bfloat16* __restrict__ q,
     l0 += __shfl_xor_sync(0xffffffffu, l0, o);
     l1 += __shfl_xor_sync(0xffffffffu, l1, o);
   }
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  const bool oal = (reinterpret_cast<uintptr_t>(out) & 3) == 0;
-#pragma unroll
-  for (int d = 0; d < ND; ++d) {
-    const int c = 8 * d + 2 * tg;
-    if (v0) store_pair(out + o0 + c, acc[d][0] / d0, acc[d][1] / d0, oal);
-    if (v1) store_pair(out + o1 + c, acc[d][2] / d1, acc[d][3] / d1, oal);
-  }
+  op.store(out, o0, o1, acc, fmaxf(l0, 1e-30f), fmaxf(l1, 1e-30f), v0, v1,
+           tg);
 }
 
-// The tile function of both prefill kernels: the tensor-core path for
-// bf16, the CUDA-core path for f32. A bf16 launch passes
+// The tile function of both prefill kernels. A launch passes
 // smem_bytes<T, HD>() of dynamic shared memory.
 template <typename T, int HD, typename Rows>
 __device__ __forceinline__ void attend(const T* __restrict__ q,
@@ -501,12 +584,8 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
                                        int tile, int h, int b, int Sq, int H,
                                        int window, bool causal, float scale,
                                        bool vec, const Rows& rows) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    attend_mma<HD>(q, out, q_pos, tile, h, b, Sq, H, window, causal, scale,
-                   vec, rows);
-  else
-    attend_simt<T, HD>(q, out, q_pos, tile, h, b, Sq, H, window, causal,
-                       scale, vec, rows);
+  attend_tc<OpOf<T, HD>, HD>(q, out, q_pos, tile, h, b, Sq, H, window, causal,
+                             scale, vec, rows);
 }
 
 }  // namespace prefill

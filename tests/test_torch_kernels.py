@@ -163,6 +163,68 @@ def test_flash_attention_kv_len_masks_columns():
     np.testing.assert_allclose(out[:1], short, atol=1e-6, rtol=0)
 
 
+def _tf32(x):
+    """f32 rounded to TF32 as the f32 prefill path's cvt.rna.tf32.f32
+    rounds it: the bits plus 0x1000, masked with 0xFFFFE000."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, split):
+    """a @ b on TF32 operands with f32 sums: one TF32 product, or the
+    split (3xTF32) product of the kernel, hi = tf32(x), lo = tf32(x - hi),
+    lo*hi + hi*lo, then + hi*hi (lo*lo dropped)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not split:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _attention_tf32(q, k, v, q_pos, split):
+    """Causal GQA attention with both products (Q K^T, then the
+    unnormalised P times V) on TF32 operands, in f32 otherwise."""
+    B, Sq, H, hd = q.shape
+    Sk, G = k.shape[1], H // k.shape[2]
+    allowed = q_pos[:, :, None].long() - torch.arange(Sk)[None, None] >= 0
+    out = torch.empty_like(q)
+    for b in range(B):
+        for h in range(H):
+            s = _mm_tf32(q[b, :, h], k[b, :, h // G].T, split) / hd ** 0.5
+            s = torch.where(allowed[b], s, torch.tensor(-2.0 ** 30))
+            p = torch.exp(s - s.max(-1, keepdim=True).values)
+            out[b, :, h] = _mm_tf32(p, v[b, :, h // G], split) / p.sum(
+                -1, keepdim=True)
+    return out
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_split_tf32_products_hold_the_f32_tolerance(hd):
+    """The numeric design of the f32 prefill path, in plain torch: at the
+    recovery's selective shape cut to 2 sequences of 4 query heads over 1
+    KV head (128 selected rows in blocks of 32, the last block always,
+    over 544 columns), split-TF32 products stay within the card's f32
+    tolerance of the plain version (atol 1e-4 + rtol 1e-4), and one TF32
+    product a term does not."""
+    r = _rng(hd)
+    B, Sq, Sk, H, KV, bs = 2, 128, 544, 4, 1, 32
+    last = Sk // bs - 1
+    blocks = np.stack([np.sort(np.append(r.choice(last, Sq // bs - 1,
+                                                  replace=False), last))
+                       for _ in range(B)])
+    q_pos = _t((blocks[:, :, None] * bs + np.arange(bs)).reshape(B, Sq)
+               .astype(np.int32))
+    q, k, v = (_t(x) for x in _attn_inputs(hd, B, Sq, Sk, H, KV, hd))
+    want = ref.flash_attention_ref(q, k, v, q_pos=q_pos, window=Sk)
+
+    def held(got):
+        return bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+
+    split = _attention_tf32(q, k, v, q_pos, split=True)
+    assert held(split), (split - want).abs().max().item()
+    assert (split - want).abs().max().item() < 1e-5
+    assert not held(_attention_tf32(q, k, v, q_pos, split=False))
+
+
 # ------------------------------------------------------- paged decode
 def test_flash_decode_paged_plain_matches_jax():
     """Ragged per-sequence spans, a tail > 0 and GQA 8:2: each sequence
@@ -273,6 +335,21 @@ def test_gpu_flash_attention(cuda, dtype, H, KV, hd):
                                        kv_len=kl),
                    ref.flash_attention_ref(qq, k, v, q_pos=qp, window=w,
                                            kv_len=kl), dtype)
+    # the recovery's selective call: 128 selected rows in 4 blocks of 32
+    # (the last block always) over 544 columns, as _select_blocks gives
+    Sk, bs = 544, 32
+    blocks = torch.stack([torch.cat([torch.sort(torch.randperm(
+        Sk // bs - 1, generator=g, device=cuda)[:3]).values,
+        torch.tensor([Sk // bs - 1], device=cuda)]) for _ in range(B)])
+    sel = (blocks[:, :, None] * bs + torch.arange(bs, device=cuda)).reshape(
+        B, 4 * bs).to(torch.int32).contiguous()
+    q = torch.randn(B, 4 * bs, H, hd, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, Sk, KV, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, Sk, KV, hd, generator=g, device=cuda).to(dtype)
+    got = ops.flash_attention(q, k, v, q_pos=sel, window=Sk)
+    assert torch.equal(ops.flash_attention(q, k, v, q_pos=sel, window=Sk),
+                       got), "two calls differ"
+    _close(got, ref.flash_attention_ref(q, k, v, q_pos=sel, window=Sk), dtype)
 
 
 def _held(got, want, dtype, what):
@@ -297,8 +374,8 @@ def _shifted(x):
 
 
 # head dims x GQA groups of the tensor-core path's edge tests: the hd 32,
-# 64 and 128 fragments, G 1 (H == KV), 5 (Hymba-1.5B) and 7 (Qwen2.5-7B)
-EDGE_HEADS = [(hd, G) for hd in (32, 64, 128) for G in (1, 5, 7)]
+# 64 and 128 fragments, G 1 (H == KV), 5 (Hymba-1.5B), 7 (Qwen2.5-7B) and 8
+EDGE_HEADS = [(hd, G) for hd in (32, 64, 128) for G in (1, 5, 7, 8)]
 
 
 @pytest.mark.gpu
@@ -307,12 +384,13 @@ EDGE_HEADS = [(hd, G) for hd in (32, 64, 128) for G in (1, 5, 7)]
                                   "selected", "unaligned"])
 @pytest.mark.parametrize("hd,G", EDGE_HEADS)
 def test_gpu_flash_prefill_edges(cuda, dtype, case, hd, G):
-    """The dense prefill kernel where the bf16 path's 16-row fragments
-    and 64-row KV tiles are cut: Sq 141 (= 2 x 64 + 13), kv_len 155 and
-    71, a binding window with a ragged kv_len, selected query positions
-    with a binding window, and K/V off a 16-byte boundary (staged with
-    plain loads: the same bits as the aligned launch). Every query row
-    keeps an allowed column."""
+    """The dense prefill kernel where the tile function's 16-row
+    fragments and KV tiles (64 rows in bf16, 32 in f32) are cut: Sq 141
+    (= 2 x 64 + 13), kv_len 155 and 71, a binding window with a ragged
+    kv_len, selected query positions with a binding window, and q, K and V
+    off a 16-byte boundary (staged with plain loads: the same bits as the
+    aligned launch). Two calls give the same bits. Every query row keeps
+    an allowed column."""
     g = torch.Generator(device=cuda).manual_seed(hd + G)
     KV, B = 2, 2
     H = KV * G
@@ -338,10 +416,13 @@ def test_gpu_flash_prefill_edges(cuda, dtype, case, hd, G):
     ops.reset_launches()
     got = ops.flash_attention(q, k, v, q_pos=q_pos, window=window, kv_len=kl)
     assert ops.LAUNCHES["flash_prefill"] == 1
+    assert torch.equal(ops.flash_attention(q, k, v, q_pos=q_pos,
+                                           window=window, kv_len=kl), got), \
+        "two calls differ"
     if case == "unaligned":
         assert torch.equal(ops.flash_attention(
-            q, _shifted(k), _shifted(v), q_pos=q_pos, window=window,
-            kv_len=kl), got)
+            _shifted(q), _shifted(k), _shifted(v), q_pos=q_pos,
+            window=window, kv_len=kl), got)
     _held(got, ref.flash_attention_ref(q, k, v, q_pos=q_pos, window=window,
                                        kv_len=kl), dtype,
           f"flash_prefill {case} hd {hd} G {G}")
@@ -770,12 +851,12 @@ def test_gpu_prefill_kernels_stage_unaligned_rows(cuda, dtype):
 def test_gpu_flash_prefill_paged_edges(cuda, dtype, case, hd, G):
     """The paged prefill kernel at the same edges: spans of 149 (pages of
     32) and 141 (pages of 16) with tails of 13 and 21, so a page, a
-    16-row fragment and a 64-row KV tile are cut; half of table 1
-    aliasing table 0's pages under a binding window; selected query
-    positions with a binding window; non-causal; the pool off a 16-byte
-    boundary. Bit-equal to the dense kernel on the gathered stream where
-    that kernel expresses the call (causal), and held to the plain
-    version in every case."""
+    16-row fragment and a KV tile (64 rows in bf16, 32 in f32) are cut;
+    half of table 1 aliasing table 0's pages under a binding window;
+    selected query positions with a binding window; non-causal; q and the
+    pool off a 16-byte boundary. Bit-equal to the dense kernel on the
+    gathered stream where that kernel expresses the call (causal), two
+    calls bit-equal, and held to the plain version in every case."""
     g = torch.Generator(device=cuda).manual_seed(1000 + hd + G)
     KV, B = 2, 2
     H = KV * G
@@ -810,9 +891,11 @@ def test_gpu_flash_prefill_paged_edges(cuda, dtype, case, hd, G):
     ops.reset_launches()
     got = ops.flash_prefill_paged(q, pk, pv, pidx, tk, tv, **kw)
     assert ops.LAUNCHES["flash_prefill_paged"] == 1
+    assert torch.equal(ops.flash_prefill_paged(q, pk, pv, pidx, tk, tv, **kw),
+                       got), "two calls differ"
     if case == "unaligned":
         assert torch.equal(ops.flash_prefill_paged(
-            q, _shifted(pk), _shifted(pv), pidx, tk, tv, **kw), got)
+            _shifted(q), _shifted(pk), _shifted(pv), pidx, tk, tv, **kw), got)
     if causal:
         kd, vd = ref.paged_kv_ref(pk, pv, pidx, tk, tv, span)
         pos = q_pos if q_pos is not None else torch.arange(
