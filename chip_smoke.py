@@ -24,10 +24,15 @@ Phases (each prints its lines; any failure exits non-zero):
      not, everything bit-equal to the main path;
   4. each kernel against its plain PyTorch version on those main-path
      inputs (bf16, and cast to f32) and on edge cases, with CUDA-event
-     times of kernel, plain version and one PyTorch library call; the
-     prefill kernel is timed at the path's largest call in f32 (the
-     recovery of rounds >= 1) and in bf16, and at round 0's bf16 prefill,
-     each beside SDPA and its bound; the paged decode kernel is timed at
+     times of kernel, plain version and one PyTorch library call;
+     ``rope_align`` at both of the path's calls (the shared blocks', one
+     delta row for every layer, and the decode tails', one a request) and
+     ``block_diff`` at the path's family and at 16 members, each in both
+     types and twice for the same bits, and ``block_diff`` with a NaN in
+     a mirror's block and in the Master's (NaN in those cells only, as
+     the plain version gives); the prefill kernel is timed at the path's
+     largest call in f32 (the recovery of rounds >= 1) and in bf16, and at
+     round 0's bf16 prefill, each beside SDPA and its bound; the paged decode kernel is timed at
      the path's call in bf16 and f32 and called twice for the same bits,
      with the host time of one wrapper call;
   5. [paged_prefill] ``flash_prefill_paged`` over the main path's round-2
@@ -256,11 +261,22 @@ def times_line(t):
             f"{t['bound_by']}{core}{host})")
 
 
-def check(name, got, want, dtype):
+def check(name, got, want, dtype, equal_nan=False):
+    """Max abs error of a kernel's result against its plain version; raises
+    beyond the tolerance or on any non-finite value. ``equal_nan`` (only
+    block_diff's NaN case): NaN where the plain version gives NaN, and
+    nowhere else."""
     atol, rtol = TOL[dtype] if name != "block_diff" else (0.0, 0.0)
-    err = (got.float() - want.float()).abs()
-    ok = bool((err <= atol + rtol * want.float().abs()).all())
-    if not ok or not torch.isfinite(got.float()).all():
+    got, want = got.float(), want.float()
+    if equal_nan:
+        nan = torch.isnan(want)
+        if not torch.equal(torch.isnan(got), nan):
+            raise AssertionError(f"{name} ({dtype}): NaN at other cells than "
+                                 f"the plain version's")
+        got, want = got[~nan], want[~nan]
+    err = (got - want).abs()
+    ok = bool((err <= atol + rtol * want.abs()).all())
+    if not ok or not torch.isfinite(got).all():
         raise AssertionError(f"{name} ({dtype}) disagrees with its plain "
                              f"version: max abs err {err.max().item()}")
     return err.max().item()
@@ -306,6 +322,7 @@ class Recorder:
         self.kept = {}
         self.orig = {}
         self.split = {"bf16": 0, "f32 fresh": 0, "f32 selective": 0}
+        self.rope_split = {"shared": 0, "per_request": 0}
 
     def _keep(self, key, size, args, kwargs):
         # ``size`` orders calls by their work, read from shapes only (no
@@ -336,7 +353,17 @@ class Recorder:
                     size = args[3].numel()        # pages in the table
                 elif _name == "flash_decode":
                     size = args[1].numel()        # the dense cache
+                elif _name == "rope_align" and args[0].dim() == 5:
+                    # one delta row a request: the decode tails' call
+                    key = "rope_align_per_request"
                 self._keep(key, size, args, kwargs)
+                if _name == "rope_align":
+                    n0 = self.ops.LAUNCHES["rope_align"]
+                    out = _fn(*args, **kwargs)
+                    self.rope_split["shared" if key == _name else
+                                    "per_request"] += \
+                        self.ops.LAUNCHES["rope_align"] - n0
+                    return out
                 if _name != "flash_attention":
                     return _fn(*args, **kwargs)
                 n0 = self.ops.LAUNCHES["flash_prefill"]
@@ -431,7 +458,8 @@ def main_path(dev):
     torch.cuda.reset_peak_memory_stats()
     stats, launches, rec = serve_phase("main", engine, trace, ops)
     kept = rec.kept
-    say(f"[main] flash_prefill launches by call: {rec.split}")
+    say(f"[main] flash_prefill launches by call: {rec.split}; rope_align "
+        f"launches by call: {rec.rope_split}")
     del engine.collector.collective_reuse     # the spy holds the engine
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for st in stats:
@@ -493,44 +521,82 @@ def main_path(dev):
     kept["flash_decode_dense"] = drec.kept["flash_decode"]
     del engine, params
     torch.cuda.empty_cache()
-    return launches, kept, priv, cfg.n_heads, rec.split
+    return launches, kept, priv, cfg.n_heads, rec.split, rec.rope_split
 
 
 # ------------------------------------------------------------- phase 4
-def kernels(dev, launches, kept, split):
+def store_times(timer, kernel, plain, n_bytes, flops, dtype):
+    """CUDA-event times of a store-side kernel and its plain version, and
+    its bound (no PyTorch call computes either function)."""
+    bms, by = bound(n_bytes, flops, dtype)
+    return dict(ms=timer(kernel), plain_ms=timer(plain), bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
+def store_line(t):
+    return (f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, bound "
+            f"{t['bound_ms']:.4f} by {t['bound_by']}, "
+            f"{t['bound_ms'] / t['ms']:.2f} of it)")
+
+
+def kernels(dev, launches, kept, split, rope_split):
     from repro_torch.kernels import ops, ref
 
     timer = Timer(dev)
     rows = []
 
     # ---- rope_align -------------------------------------------------
+    # the shared blocks' call (one delta row for every layer) and the
+    # decode tails' (one delta row a request), each in both types
+    assert sum(rope_split.values()) == launches["rope_align"], rope_split
+    for key, call in (("rope_align", "shared"),
+                      ("rope_align_per_request", "per_request")):
+        _, (k, delta, theta), _ = kept[key]
+        errs, times = {}, {}
+        for dt in (torch.bfloat16, torch.float32):
+            kk = k.to(dt)
+            got = ops.rope_align(kk, delta, theta)
+            errs[dt] = check("rope_align", got,
+                             ref.rope_delta_ref(kk, delta, theta), dt)
+            assert torch.equal(got, ops.rope_align(kk, delta, theta)), dt
+            times[dt] = store_times(
+                timer, lambda kk=kk: ops.rope_align(kk, delta, theta),
+                lambda kk=kk: ref.rope_delta_ref(kk, delta, theta),
+                2 * nbytes(kk) + nbytes(delta), 7 * kk.numel() // 2, dt)
+            say(f"[kernel] rope_align, {call} call, k {list(k.shape)} by "
+                f"delta {list(delta.shape)}, {dt}: {store_line(times[dt])}, "
+                f"max abs err {errs[dt]:.3g}")
+        rows.append(dict(
+            name="rope_align", shape=list(k.shape), call=call,
+            launches=rope_split[call] if call != "shared" else
+            launches["rope_align"], launches_split=rope_split,
+            max_abs_err=errs[k.dtype], max_abs_err_f32=errs[torch.float32],
+            **times[k.dtype]))
+    # edge: per-request deltas over 4 copies of the shared call's keys
     _, (k, delta, theta), _ = kept["rope_align"]
-    errs = {}
-    for dt in (torch.bfloat16, torch.float32):
-        kk = k.to(dt)
-        errs[dt] = check("rope_align", ops.rope_align(kk, delta, theta),
-                         ref.rope_delta_ref(kk, delta, theta), dt)
-    # edge: per-request deltas over [B, L, T] (the decode-tail alignment)
     kb = torch.stack([k] * 4)
     d2 = torch.randint(-700, 700, (4, k.shape[1]), device=dev,
                        dtype=torch.int32)
     check("rope_align", ops.rope_align(kb, d2, theta),
           ref.rope_delta_ref(kb, d2, theta), kb.dtype)
-    bms, by = bound(2 * nbytes(k) + nbytes(delta), 7 * k.numel() // 2,
-                    k.dtype)
-    rows.append(dict(
-        name="rope_align", shape=list(k.shape), max_abs_err=errs[k.dtype],
-        max_abs_err_f32=errs[torch.float32],
-        ms=timer(lambda: ops.rope_align(k, delta, theta)),
-        plain_ms=timer(lambda: ref.rope_delta_ref(k, delta, theta)),
-        bound_ms=bms, bound_by=by, library_ms=None))
 
     # ---- block_diff -------------------------------------------------
     _, (ks, vs, master, bt), _ = kept["block_diff"]
+    errs, times = {}, {}
+    nb = -(-ks.shape[2] // bt)
     for dt in (torch.bfloat16, torch.float32):
         a, b = ks.to(dt), vs.to(dt)
-        errs[dt] = check("block_diff", ops.block_diff(a, b, master, bt),
+        got = ops.block_diff(a, b, master, bt)
+        errs[dt] = check("block_diff", got,
                          ref.block_diff_ref(a, b, master, bt), dt)
+        assert torch.equal(got, ops.block_diff(a, b, master, bt)), dt
+        times[dt] = store_times(
+            timer, lambda a=a, b=b: ops.block_diff(a, b, master, bt),
+            lambda a=a, b=b: ref.block_diff_ref(a, b, master, bt),
+            nbytes(a, b) + 4 * a.shape[0] * nb, 3 * (a.numel() + b.numel()),
+            dt)
+        say(f"[kernel] block_diff, 2 x {list(ks.shape)}, Master {master}, "
+            f"{dt}: {store_line(times[dt])}")
     same = ks[:3].clone()
     same[1:] = same[0]
     assert (ops.block_diff(same, same, 0, bt) == 0).all(), "zero diffs"
@@ -542,14 +608,30 @@ def kernels(dev, launches, kept, split):
     rv = vs[:, :, : vs.shape[2] - 5].contiguous()
     check("block_diff", ops.block_diff(ragged, rv, master, bt),
           ref.block_diff_ref(ragged, rv, master, bt), ks.dtype)
-    bms, by = bound(nbytes(ks, vs) + 4 * ks.shape[0] * (-(-ks.shape[2] // bt)),
-                    3 * (ks.numel() + vs.numel()), ks.dtype)
+    # edge: a NaN in one mirror's block 1, then in the Master's: NaN in
+    # that cell (every member's), as jnp.max gives; the rest exact
+    for n in (2, 0):
+        nk, nv = ks[:3, :2].clone(), vs[:3, :2].clone()
+        nv[n, 1, bt + 8, 1, 7] = float("nan")
+        got = ops.block_diff(nk, nv, 0, bt)
+        check("block_diff", got, ref.block_diff_ref(nk, nv, 0, bt), ks.dtype,
+              equal_nan=True)
+        assert int(torch.isnan(got).sum()) == (1 if n else 3), got
+    # edge: a family of 16 (two chunks of members a thread), timed
+    k16 = torch.cat([ks, ks.roll(1, dims=2)])
+    v16 = torch.cat([vs, vs.roll(1, dims=2)])
+    check("block_diff", ops.block_diff(k16, v16, master, bt),
+          ref.block_diff_ref(k16, v16, master, bt), ks.dtype)
+    t16 = store_times(timer, lambda: ops.block_diff(k16, v16, master, bt),
+                      lambda: ref.block_diff_ref(k16, v16, master, bt),
+                      nbytes(k16, v16) + 4 * 16 * nb,
+                      3 * (k16.numel() + v16.numel()), ks.dtype)
+    say(f"[kernel] block_diff, 2 x {list(k16.shape)}, {ks.dtype}: "
+        f"{store_line(t16)}; NaN cells as the plain version's")
+    del k16, v16
     rows.append(dict(
         name="block_diff", shape=list(ks.shape), max_abs_err=errs[ks.dtype],
-        max_abs_err_f32=errs[torch.float32],
-        ms=timer(lambda: ops.block_diff(ks, vs, master, bt)),
-        plain_ms=timer(lambda: ref.block_diff_ref(ks, vs, master, bt)),
-        bound_ms=bms, bound_by=by, library_ms=None))
+        max_abs_err_f32=errs[torch.float32], **times[ks.dtype]))
 
     # ---- flash_prefill ----------------------------------------------
     def attn_case(key):
@@ -1284,8 +1366,8 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = card()
     build()
-    launches, kept, priv, n_heads, split = main_path(dev)
-    table = kernels(dev, launches, kept, split)
+    launches, kept, priv, n_heads, split, rope_split = main_path(dev)
+    table = kernels(dev, launches, kept, split, rope_split)
     table += table_rows([paged_prefill(dev, priv, n_heads)])
     del priv
     hlaunches, hkept = hybrid(dev)

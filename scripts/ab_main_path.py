@@ -2,10 +2,10 @@
 served by ``ServingEngine`` + ``TokenDancePolicy`` on the 8-agent,
 3-round trace — and its ``[hybrid]`` phase (Hymba-1.5B on the same
 trace) from several checkouts in turn on one card, and print each run's
-per-round recover, restore and decode ms, serve seconds and peak device
-memory (its ``[main]`` lines), the ``[dense]`` loop's decode ms per round,
-and the hybrid rounds' recover and decode ms and serve seconds as one
-JSON line.
+per-round recover, restore, decode and store ms, serve seconds and peak
+device memory (its ``[main]`` lines), the ``[dense]`` loop's decode ms per
+round, and the hybrid rounds' recover and decode ms and serve seconds as
+one JSON line.
 
 Each run also times every attention call of the main path's served trace
 with CUDA events (``ops.flash_attention`` wrapped; one event pair a call,
@@ -13,11 +13,13 @@ no synchronisation on the served path): ``recover_attn_ms`` is the sum
 over the timed recovery of each round (its last 28 calls; the first 28
 are the untimed warm-up of the round's new shape), split into the fresh
 layers' calls (``_fresh_ms``) and the selective layers' (``_sel_ms``).
-It saves the main path's greedy tokens and first-token logits to
-``build/ab_main_outputs.npz`` in its checkout; at the end, every other
-checkout's tokens and logits are compared with the first one's (tokens
-that differ, with the first root's top-2 logit margin where the first
-token of a row differs, and the largest first-token logit difference).
+It saves the main path's greedy tokens, first-token logits and each
+round's ledgers (the policy's reuse record: restore, pool and compression
+counts, and the persistent bytes) to ``build/ab_main_outputs.npz`` in its
+checkout; at the end, every other checkout's tokens, logits and ledgers
+are compared with the first one's (tokens that differ, with the first
+root's top-2 logit margin where the first token of a row differs, the
+largest first-token logit difference, and whether the ledgers are equal).
 
     python3 scripts/ab_main_path.py PARENT . . PARENT
 
@@ -74,9 +76,12 @@ for r in range(len(served[0])):
     attn['recover_attn_ms'].append(sum(t for _, t in ms))
     attn['recover_attn_fresh_ms'].append(sum(t for f, t in ms if f))
     attn['recover_attn_sel_ms'].append(sum(t for f, t in ms if not f))
+ledgers = json.dumps([{'reuse': st.reuse, 'persistent': st.persistent_bytes}
+                      for st in served[0]], sort_keys=True, default=str)
 np.savez('build/ab_main_outputs.npz',
          outputs=np.stack([st.outputs for st in served[0]]),
-         first_logits=np.stack([st.first_logits for st in served[0]]))
+         first_logits=np.stack([st.first_logits for st in served[0]]),
+         ledgers=np.array(ledgers))
 print('[attn] ' + json.dumps(attn), flush=True)
 ops.flash_attention = attention
 c.hybrid(dev)
@@ -105,6 +110,8 @@ def run(root: str) -> dict:
                            re.findall(r"restore ([0-9.]+), decode", main)],
             "decode_ms": [float(x) for x in
                           re.findall(r"decode ([0-9.]+), store", main)],
+            "store_ms": [float(x) for x in
+                         re.findall(r"store ([0-9.]+)\)", main)],
             "serve_s": float(re.search(r"serve ([0-9.]+) s", main).group(1)),
             "peak_gib": float(re.search(r"peak device memory ([0-9.]+) GiB",
                                         main).group(1)),
@@ -140,7 +147,10 @@ def compare(base: str, other: str) -> dict:
                        "tokens_differ": int(len(diff)), "flips": flips,
                        "first_logits_max_abs_diff":
                            float(np.abs(la - lb).max())})
-    return {"base": base, "other": other, "rounds": rounds}
+    ledgers = ("ledgers" in a and "ledgers" in b
+               and str(a["ledgers"]) == str(b["ledgers"]))
+    return {"base": base, "other": other, "rounds": rounds,
+            "ledgers_equal": ledgers}
 
 
 def main() -> int:

@@ -4,63 +4,139 @@
 // TPU kernel, grid over 128-token tiles of one [S, KV, hd] slab).
 //
 // What bounds it: bytes. Each element is read once and written once with
-// a handful of flops (one sincosf per (token, frequency), four FMAs per
-// pair), far below the card's ~295 flop/byte ridge.
+// four flops a pair and one sincosf per (delta row, token, frequency), far
+// below the card's ~295 flop/byte ridge.
 //
-// Design: one thread per (leading row, token, KV head, i < hd/2) rotates
-// the pair (x[i], x[i + hd/2]). A leading axis A (layers, or batch x
-// layers) is folded into the grid so ONE launch aligns every layer of the
-// shared blocks. Deltas are [D, S] with D dividing A: row a uses delta
-// [a / (A / D)] (D = 1 shares one delta row across all layers; D = batch
-// gives per-request deltas for the decode tails). The frequency table is
-// the wrapper's f32 1/theta^(i/half) — the form the model's RoPE rotates
-// with — and sincosf is the accurate one (no --use_fast_math). Threads
-// adjacent in i touch adjacent addresses, so both halves' loads and
-// stores are coalesced.
+// Design: keys [A, S, KV, hd] (a leading axis A of layers, or batch x
+// layers) and deltas [D, S], D dividing A: row a uses delta[a / (A / D)].
+// Block (token s, delta row d) covers token s of every leading row that
+// uses row d. It first computes each angle of its token once —
+// sincosf((float)delta * inv_freq[i]), the accurate sincosf (no
+// --use_fast_math) of the wrapper's f32 1/theta^(i/half), the form the
+// model's RoPE rotates with — into shared memory. Each thread then holds
+// the cos and sin of one (KV head, 16-byte word of the first half) in
+// registers and walks the leading rows of its delta row, kRows at a time:
+// it loads the words x1 at i..i+E-1 and x2 at i + hd/2 of every row of the
+// batch (2·kRows loads in flight), then stores x1·cos − x2·sin and x2·cos
+// + x1·sin as two words each. Adjacent threads take adjacent words, so
+// every access is a full 16-byte word and coalesced. Indices come from
+// blockIdx and the thread's fixed place; the only divisions are 32-bit,
+// once a thread. The two products are written as the fused multiply-adds
+// the first kernel's compiler chose, fma(x1, cos, −x2·sin) and fma(x1,
+// sin, x2·cos), so the bits do not depend on how nvcc contracts them.
 #include "common.cuh"
 
-template <typename T>
-__global__ void rope_align_kernel(const T* __restrict__ k, T* __restrict__ out,
-                                  const int* __restrict__ delta,
-                                  const float* __restrict__ inv_freq,
-                                  long long total, int rows_per_delta, int S,
-                                  int KV, int half) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int i = (int)(t % half);
-  long long r = t / half;                 // (a, s, kv) flattened
-  const int kv = (int)(r % KV);
-  r /= KV;
-  const int s = (int)(r % S);
-  const long long a = r / S;
-  const int dl = delta[(a / rows_per_delta) * S + s];
-  float sn, cs;
-  sincosf((float)dl * inv_freq[i], &sn, &cs);
-  const long long base = ((a * S + s) * KV + kv) * (2LL * half);
-  const float x1 = to_f32(k[base + i]);
-  const float x2 = to_f32(k[base + half + i]);
-  out[base + i] = from_f32<T>(x1 * cs - x2 * sn);
-  out[base + half + i] = from_f32<T>(x2 * cs + x1 * sn);
+namespace rope_align {
+
+constexpr int kThreads = 256;
+constexpr int kRows = 4;           // leading rows a thread loads at once
+
+template <typename T, int W>       // W: 16-byte words in half a head
+__global__ void __launch_bounds__(kThreads)
+kernel(const T* __restrict__ k, T* __restrict__ out,
+       const int* __restrict__ delta, const float* __restrict__ inv_freq,
+       int rows_per_delta, int S, int KV) {
+  constexpr int E = 16 / sizeof(T);      // elements a word
+  constexpr int HALF = W * E;
+  constexpr int HD = 2 * HALF;
+  __shared__ float cos_s[HALF], sin_s[HALF];
+  const int s = blockIdx.x, d = blockIdx.y;
+  if (threadIdx.x < HALF) {
+    float sn, cs;
+    sincosf((float)delta[d * S + s] * inv_freq[threadIdx.x], &sn, &cs);
+    cos_s[threadIdx.x] = cs;
+    sin_s[threadIdx.x] = sn;
+  }
+  __syncthreads();
+
+  // thread -> (KV head, word j) of one leading row, and the phase g of the
+  // rows it walks (G rows at once when a row's words fit in the block)
+  const int per_row = KV * W;
+  const int G = max(1, kThreads / per_row);
+  const int g = threadIdx.x / per_row;
+  if (g >= G) return;
+  const size_t step = (size_t)G * S * KV * HD;   // G leading rows
+  for (int e = threadIdx.x % per_row; e < per_row; e += kThreads) {
+    const int j = e % W;                   // e / W is the KV head
+    float cs[E], sn[E];
+#pragma unroll
+    for (int c = 0; c < E; ++c) {
+      cs[c] = cos_s[j * E + c];
+      sn[c] = sin_s[j * E + c];
+    }
+    const size_t off = ((size_t)(d * rows_per_delta + g) * S + s) * KV * HD +
+                       (size_t)(e / W) * HD + j * E;
+    const T* src = k + off;
+    T* dst = out + off;
+    for (int a = g; a < rows_per_delta; a += kRows * G) {
+      uint4 w1[kRows], w2[kRows];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        if (a + u * G < rows_per_delta) {
+          w1[u] = __ldg(reinterpret_cast<const uint4*>(src + u * step));
+          w2[u] = __ldg(reinterpret_cast<const uint4*>(src + u * step + HALF));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        if (a + u * G >= rows_per_delta) break;
+        uint4 o1, o2;
+        T* p1 = reinterpret_cast<T*>(&o1);
+        T* p2 = reinterpret_cast<T*>(&o2);
+#pragma unroll
+        for (int c = 0; c < E; ++c) {
+          const float x1 = word_elem<T>(w1[u], c), x2 = word_elem<T>(w2[u], c);
+          p1[c] = from_f32<T>(__fmaf_rn(x1, cs[c], -__fmul_rn(x2, sn[c])));
+          p2[c] = from_f32<T>(__fmaf_rn(x1, sn[c], __fmul_rn(x2, cs[c])));
+        }
+        *reinterpret_cast<uint4*>(dst + u * step) = o1;
+        *reinterpret_cast<uint4*>(dst + u * step + HALF) = o2;
+      }
+      src += kRows * step;
+      dst += kRows * step;
+    }
+  }
 }
 
+template <typename T>
+int launch(const T* k, T* out, const int* delta, const float* inv_freq,
+           int rows_per_delta, int D, int S, int KV, int W, cudaStream_t st) {
+  dim3 grid(S, D);
+  switch (W) {
+#define ROPE_CASE(w)                                                   \
+  case w:                                                              \
+    kernel<T, w><<<grid, kThreads, 0, st>>>(k, out, delta, inv_freq,   \
+                                            rows_per_delta, S, KV);    \
+    break;
+    ROPE_CASE(2)
+    ROPE_CASE(4)
+    ROPE_CASE(8)
+    ROPE_CASE(16)
+#undef ROPE_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace rope_align
+
+// k, out [A, S, KV, hd], 16-byte aligned; half a head fills 2, 4, 8 or 16
+// whole 16-byte words (hd 32, 64, 128 in both types).
 extern "C" int rope_align_launch(const void* k, void* out, const int* delta,
                                  const float* inv_freq, int A, int D, int S,
                                  int KV, int hd, int dtype, void* stream) {
-  const int half = hd / 2;
-  const long long total = (long long)A * S * KV * half;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  if ((long long)A * S * KV * hd == 0) return 0;
+  const int esize = dtype == kF32 ? 4 : 2;
+  if (D <= 0 || A % D || (hd / 2 * esize) % 16 || (size_t)k % 16 ||
+      (size_t)out % 16)
+    return (int)cudaErrorInvalidValue;
+  const int W = hd / 2 * esize / 16;
   cudaStream_t st = (cudaStream_t)stream;
-  const int rows_per_delta = A / D;
-  if (dtype == kF32) {
-    rope_align_kernel<float><<<blocks, threads, 0, st>>>(
-        (const float*)k, (float*)out, delta, inv_freq, total, rows_per_delta,
-        S, KV, half);
-  } else {
-    rope_align_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-        (const __nv_bfloat16*)k, (__nv_bfloat16*)out, delta, inv_freq, total,
-        rows_per_delta, S, KV, half);
-  }
-  return (int)cudaGetLastError();
+  if (dtype == kF32)
+    return rope_align::launch<float>((const float*)k, (float*)out, delta,
+                                     inv_freq, A / D, D, S, KV, W, st);
+  return rope_align::launch<__nv_bfloat16>(
+      (const __nv_bfloat16*)k, (__nv_bfloat16*)out, delta, inv_freq, A / D,
+      D, S, KV, W, st);
 }

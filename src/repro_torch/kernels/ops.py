@@ -9,8 +9,10 @@ contiguity) raises, and so does a launch the CUDA runtime refuses.
 
 Every wrapper allocates its output with ``torch.empty`` (the two restore
 wrappers write into the pools they are given, in place, as the TPU
-kernels alias theirs; the two decode wrappers also allocate their
-splits' f32 scratch, and keep the splits' tickets per stream),
+kernels alias theirs; ``block_diff``'s is ``torch.zeros``, which its
+blocks combine into by ``atomicMax``; the two decode wrappers also
+allocate their splits' f32 scratch, and keep the splits' tickets per
+stream),
 launches on the current stream without synchronising, and adds one to
 ``LAUNCHES[<kernel>]`` where — and only where — it launches the kernel,
 so a run can show that its path went through each kernel.
@@ -93,11 +95,24 @@ def _launch(kernel: str, *args) -> None:
 
 
 # --------------------------------------------------------------------------
+_FREQS: Dict[Tuple, torch.Tensor] = {}
+
+
+def _rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
+    """``ref.rope_freqs`` on the device, made once per (hd, theta, device)
+    and read-only after: building it costs four launches a call."""
+    key = (hd, float(theta), device)
+    if key not in _FREQS:
+        _FREQS[key] = ref.rope_freqs(hd, theta, device)
+    return _FREQS[key]
+
+
 def rope_align(k: torch.Tensor, delta: torch.Tensor,
                theta: float) -> torch.Tensor:
     """Rotate keys ``[A..., S, KV, hd]`` by position deltas ``[S]`` (all
     leading rows) or ``[D, S]`` (leading row ``a`` uses ``delta[a //
-    (A // D)]``) — ONE launch over every leading row."""
+    (A // D)]``) — ONE launch over every leading row. The kernel takes
+    head dims 32, 64 and 128, keys 16-byte aligned."""
     if _on_cpu("rope_align", k, delta):
         return ref.rope_delta_ref(k, delta, theta)
     S, KV, hd = k.shape[-3:]
@@ -108,10 +123,12 @@ def rope_align(k: torch.Tensor, delta: torch.Tensor,
     if d.dtype != torch.int32:
         raise TypeError("delta must be int32")
     d = d.contiguous()
-    if hd % 2 or D == 0 or A % D:
+    if hd not in (32, 64, 128) or D == 0 or A % D:
         raise ValueError(f"bad rope_align shapes k={tuple(k.shape)} "
                          f"delta={tuple(delta.shape)}")
-    freqs = ref.rope_freqs(hd, theta, k.device)
+    if k.data_ptr() % 16:
+        raise ValueError("k must be 16-byte aligned")
+    freqs = _rope_freqs(hd, theta, k.device)
     out = torch.empty_like(k)
     _launch("rope_align", k.data_ptr(), out.data_ptr(), d.data_ptr(),
             freqs.data_ptr(), A, D, S, KV, hd, _DTYPES[k.dtype], _stream(k))
@@ -122,7 +139,8 @@ def rope_align(k: torch.Tensor, delta: torch.Tensor,
 def block_diff(ks: torch.Tensor, vs: torch.Tensor, master: int,
                bt: int) -> torch.Tensor:
     """Per-block max |x - x[master]| of a family ``[N, L, S, KV, hd]``
-    over both planes: f32 ``[N, ceil(S/bt)]`` in ONE launch."""
+    over both planes: f32 ``[N, ceil(S/bt)]`` in ONE launch. A NaN in a
+    block makes its value NaN, as ``amax`` does."""
     if _on_cpu("block_diff", ks, vs):
         return ref.block_diff_ref(ks, vs, master, bt)
     _check("ks", ks, ndim=5)
@@ -131,7 +149,12 @@ def block_diff(ks: torch.Tensor, vs: torch.Tensor, master: int,
         raise ValueError(f"bad block_diff args {tuple(ks.shape)} "
                          f"{tuple(vs.shape)} master={master} bt={bt}")
     N, L, S, KV, hd = ks.shape
-    out = torch.empty((N, -(-S // bt)), dtype=torch.float32,
+    if ks.data_ptr() % 16 or vs.data_ptr() % 16 or \
+            KV * hd * ks.element_size() % 16:
+        raise ValueError("ks/vs must be 16-byte aligned in whole 16-byte "
+                         "rows")
+    # the kernel combines its blocks' maxima by atomicMax into zeros
+    out = torch.zeros((N, -(-S // bt)), dtype=torch.float32,
                       device=ks.device)
     _launch("block_diff", ks.data_ptr(), vs.data_ptr(), out.data_ptr(),
             N, L, S, KV * hd, bt, master, _DTYPES[ks.dtype], _stream(ks))

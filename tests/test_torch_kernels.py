@@ -99,6 +99,28 @@ def test_block_diff_plain_matches_pallas(S):
     assert (out[3, 1:] > 0).all()
 
 
+@pytest.mark.parametrize("where", ["mirror", "master"])
+def test_block_diff_plain_propagates_nan_as_pallas(where):
+    """A NaN in one block makes that block's value NaN, as the Pallas
+    kernel's jnp.max gives: in one mirror's cell when a mirror holds it,
+    in every member's cell when the Master does. Elsewhere exact."""
+    r = _rng(7)
+    N, L, S, KV, hd, bt, m = 3, 2, 64, 2, 32, 32, 1
+    ks = r.normal(size=(N, L, S, KV, hd)).astype(np.float32)
+    vs = r.normal(size=(N, L, S, KV, hd)).astype(np.float32)
+    n = m if where == "master" else 2
+    vs[n, 1, 5, 1, 3] = np.nan                 # block 0
+    out = ops.block_diff(_t(ks), _t(vs), m, bt).numpy()
+    for i in range(N):
+        dk = jops.block_diff(jnp.asarray(ks[m]), jnp.asarray(ks[i]), bt)
+        dv = jops.block_diff(jnp.asarray(vs[m]), jnp.asarray(vs[i]), bt)
+        np.testing.assert_array_equal(out[i], np.maximum(dk, dv))
+    want = np.zeros((N, 2), bool)
+    want[:, 0] = where == "master"
+    want[n, 0] = True
+    np.testing.assert_array_equal(np.isnan(out), want)
+
+
 # ----------------------------------------------------------- flash prefill
 def _attn_inputs(seed, B=2, Sq=64, Sk=64, H=8, KV=2, hd=32):
     r = _rng(seed)
@@ -288,28 +310,89 @@ GPU_DTYPES = [torch.float32, torch.bfloat16]
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", GPU_DTYPES)
-def test_gpu_rope_align(cuda, dtype):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    k = torch.randn(28, 160, 4, 128, generator=g, device=cuda).to(dtype)
-    d = torch.randint(-600, 600, (160,), generator=g, device=cuda,
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("lead,S,KV,D", [
+    ((28,), 544, 4, 1),          # the shared blocks' call
+    ((8, 28), 32, 4, 8),         # the decode tails' call
+    ((4, 7), 160, 4, 4),         # 7 rows a delta
+    ((3, 2), 37, 5, 3),          # odd S, 5 KV heads, 2 rows a delta
+    ((6,), 1, 4, 2)])            # one token
+def test_gpu_rope_align(cuda, dtype, hd, lead, S, KV, D):
+    g = torch.Generator(device=cuda).manual_seed(hd + S)
+    k = torch.randn(*lead, S, KV, hd, generator=g, device=cuda).to(dtype)
+    d = torch.randint(-900, 900, (D, S), generator=g, device=cuda,
                       dtype=torch.int32)
-    _close(ops.rope_align(k, d, 1e6), ref.rope_delta_ref(k, d, 1e6), dtype)
-    d2 = torch.randint(0, 600, (4, 160), generator=g, device=cuda,
-                       dtype=torch.int32)
-    _close(ops.rope_align(k.reshape(4, 7, 160, 4, 128), d2, 1e6),
-           ref.rope_delta_ref(k.reshape(4, 7, 160, 4, 128), d2, 1e6), dtype)
+    d = d[0] if D == 1 else d
+    out = ops.rope_align(k, d, 1e6)
+    _close(out, ref.rope_delta_ref(k, d, 1e6), dtype)
+    assert torch.equal(out, ops.rope_align(k, d, 1e6))
+
+
+def _family(cuda, dtype, N, L, S, KV, hd, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    ks = torch.randn(N, L, S, KV, hd, generator=g, device=cuda).to(dtype)
+    vs = torch.randn(N, L, S, KV, hd, generator=g, device=cuda).to(dtype)
+    return ks, vs
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", GPU_DTYPES)
-def test_gpu_block_diff(cuda, dtype):
-    g = torch.Generator(device=cuda).manual_seed(1)
-    ks = torch.randn(4, 3, 100, 4, 128, generator=g, device=cuda).to(dtype)
-    vs = torch.randn(4, 3, 100, 4, 128, generator=g, device=cuda).to(dtype)
-    ks[2], vs[2] = ks[0], vs[0]
+@pytest.mark.parametrize("N", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("L,S,KV,hd", [
+    (3, 100, 4, 128),            # ragged last block
+    (2, 20, 2, 64),              # S below one block
+    (1, 544, 4, 128),            # one layer, the path's tokens
+    (2, 70, 5, 32)])             # 5 KV heads of 32
+def test_gpu_block_diff(cuda, dtype, N, L, S, KV, hd):
+    """Bit-exact against the plain version for any family size (16 needs
+    two chunks of members a thread), the Master mid-family, some members and
+    blocks equal to the Master's; two calls bit-equal."""
+    ks, vs = _family(cuda, dtype, N, L, S, KV, hd, N * S + hd)
+    m = N // 2
+    if N > 2:
+        ks[0], vs[0] = ks[m], vs[m]
+        ks[1, :, :32], vs[1, :, :32] = ks[m, :, :32], vs[m, :, :32]
+    out = ops.block_diff(ks, vs, m, 32)
+    want = ref.block_diff_ref(ks, vs, m, 32)
+    assert torch.equal(out, want)
+    assert torch.equal(out, ops.block_diff(ks, vs, m, 32))
+    assert (out[m] == 0).all()
+    if N > 1:
+        assert (out[N - 1 if N > 2 else 0] > 0).all()
+    if N > 2:
+        assert (out[0] == 0).all() and out[1, 0] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_DTYPES)
+@pytest.mark.parametrize("where", ["mirror", "master"])
+def test_gpu_block_diff_propagates_nan(cuda, dtype, where):
+    """A NaN in a block gives NaN in that block's cell (every member's
+    when the Master holds it), as jnp.max and the plain version give;
+    every other cell exactly the plain version's."""
+    ks, vs = _family(cuda, dtype, 4, 3, 100, 4, 128, 5)
+    n = 0 if where == "master" else 2
+    vs[n, 1, 37, 2, 5] = float("nan")          # block 1
     out = ops.block_diff(ks, vs, 0, 32)
-    assert torch.equal(out, ref.block_diff_ref(ks, vs, 0, 32))
-    assert (out[2] == 0).all() and (out[1] > 0).all()
+    want = ref.block_diff_ref(ks, vs, 0, 32)
+    nan = torch.zeros_like(want, dtype=torch.bool)
+    nan[:, 1] = where == "master"
+    nan[n, 1] = True
+    assert torch.equal(torch.isnan(want), nan)
+    assert torch.equal(torch.isnan(out), nan)
+    assert torch.equal(out[~nan], want[~nan])
+
+
+@pytest.mark.gpu
+def test_gpu_store_kernels_reject_unaligned_rows(cuda):
+    """Both kernels move 16-byte words: an operand off 16 bytes raises."""
+    flat = torch.randn(2 * 2 * 40 * 2 * 32 + 1, device=cuda)
+    x = flat[1:].view(2, 2, 40, 2, 32)
+    with pytest.raises(ValueError):
+        ops.block_diff(x, x, 0, 32)
+    with pytest.raises(ValueError):
+        ops.rope_align(x[0], torch.zeros(40, dtype=torch.int32,
+                                         device=cuda), 1e6)
 
 
 @pytest.mark.gpu
