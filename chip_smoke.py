@@ -44,7 +44,27 @@ Phases (each prints its lines; any failure exits non-zero):
      tokens, with a binding window and with half of every table aliasing
      table 0's pages, in f32 (the pool's dtype) and on a bf16 copy; CUDA-event times of the kernel, the dense kernel on the
      gathered rows, the plain version and SDPA over the gathered rows;
-  6. [hybrid] Hymba-1.5B at full width (32 layers, bf16, random weights
+  6. [prefix] the vLLM prefix-caching baseline,
+     ``ServingEngine(params, cfg, "prefix")``, on the main path's weights
+     and trace (counts zeroed before, read after): ``flash_prefill`` and
+     ``flash_decode_paged`` launched, no plain version, round 0 bit-equal
+     to the main path's; per round the recover / decode / store times,
+     the reused prefix and the persistent bytes an agent beside the main
+     path's; then round 2's ``extend`` call (bf16, queries at positions
+     p..S-1 over S rows, ``kv_len`` S) against the plain version in bf16
+     and f32, twice for the same bits, timed beside SDPA with a mask;
+  7. [slo] the default engine under a ``RoundPlanner`` whose model is the
+     main path's round 2 (8 agents, collective) with a pool budget of 4
+     agents' state, ``refit_every=1``: the first cap binds between 1 and
+     8, each round admits min(cap, 8) agents in round-robin order, and
+     every deferred agent's session is untouched that round;
+  8. [continuous] ``ContinuousEngine`` (TokenDance, 6 agents in
+     committees of 2, ``generative_agents`` 3 rounds, arrivals 0, 8, 16)
+     at full width against the synchronized engine on the same topology:
+     per-agent outputs and first-token logits bit-equal, counted
+     makespan below the synchronized one, every TokenDance kernel
+     launched and no plain version;
+  9. [hybrid] Hymba-1.5B at full width (32 layers, bf16, random weights
      from seed 0) served by ``ServingEngine(params, cfg, "tokendance")``
      on the same trace: the engine falls back to the recompute policy and
      the dense decode loop; counts zeroed before and read after,
@@ -60,10 +80,11 @@ Phases (each prints its lines; any failure exits non-zero):
      binding window of 1024 and ragged lengths, and at Sk 4096 (more
      than 32 splits a pair); CUDA-event times of kernel, plain version
      and SDPA with a mask in both types, and the host time of one call;
-  7. the f32 smoke configurations (Qwen2.5-7B with TokenDance, Hymba-1.5B
-     with its recompute fallback) served on the card against the same
-     engine on the CPU: greedy tokens equal, logits within atol 1e-3;
-  8. [restore] the storage walkthrough
+  10. the f32 smoke configurations (Qwen2.5-7B with TokenDance and with
+     the prefix policy, Hymba-1.5B with its recompute fallback) served on
+     the card against the same engine on the CPU: greedy tokens and
+     ledgers equal, logits within atol 1e-3;
+  11. [restore] the storage walkthrough
      (``repro_torch.examples.compression_demo.walkthrough``) at Qwen2.5-7B
      full width (28 layers, bf16 weights, random from seed 0): 8 agents,
      private prefix 32, one 128-token shared block each (S 1056, nb 33),
@@ -79,6 +100,7 @@ the result as JSON.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -519,9 +541,11 @@ def main_path(dev):
     assert dlaunches["flash_decode"] > 0 and \
         dlaunches["flash_decode_paged"] == 0, dlaunches
     kept["flash_decode_dense"] = drec.kept["flash_decode"]
-    del engine, params
+    del engine
     torch.cuda.empty_cache()
-    return launches, kept, priv, cfg.n_heads, rec.split, rec.rope_split
+    # the weights, trace and rounds the serving-layer phases reuse
+    qwen = dict(params=params, cfg=cfg, trace=trace, stats=stats)
+    return launches, kept, priv, cfg.n_heads, rec.split, rec.rope_split, qwen
 
 
 # ------------------------------------------------------------- phase 4
@@ -909,6 +933,242 @@ def table_rows(rows):
     return table
 
 
+# ------------------------------------------------------ serving layer
+def prefix(dev, qwen):
+    """[prefix]: the vLLM prefix-caching baseline on the main path's
+    weights and trace (counts zeroed before, read after), then the
+    kernel at round 2's extend call (the largest: every layer's has the
+    same shape) against its plain version, in bf16 and f32, twice for the
+    same bits, and timed. Returns its kernel-table row."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving import ServingEngine
+
+    t_phase = time.perf_counter()
+    params, cfg, trace, main = (qwen[k] for k in ("params", "cfg", "trace",
+                                                  "stats"))
+    n = len(trace.agent_ids)
+    engine = ServingEngine(params, cfg, "prefix", keep_logits=True)
+    kept, ext = {}, {"launches": 0}
+    attend = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        # extend passes kv_len; a prefill does not
+        if kw.get("kv_len") is None:
+            return attend(q, k, v, **kw)
+        if engine.round_idx == 2:
+            kept["extend"] = ([x.clone() for x in (q, k, v)], {
+                key: val.clone() if torch.is_tensor(val) else val
+                for key, val in kw.items()})
+        n0 = ops.LAUNCHES["flash_prefill"]
+        out = attend(q, k, v, **kw)
+        ext["launches"] += ops.LAUNCHES["flash_prefill"] - n0
+        return out
+
+    ops.flash_attention = spy
+    try:
+        stats, launches, rec = serve_phase("prefix", engine, trace, ops)
+    finally:
+        ops.flash_attention = attend
+    for st, m in zip(stats, main):
+        say(f"[prefix] round {st.round_idx}: prompt {st.prompt_len}, "
+            f"prefix_len {st.reuse.get('prefix_len', 0)}, recover "
+            f"{st.t_recover * 1e3:.1f} ms, decode {st.t_decode * 1e3:.1f}, "
+            f"store {st.t_store * 1e3:.1f}; persistent "
+            f"{st.persistent_bytes // n} B an agent (TokenDance main path "
+            f"{m.persistent_bytes // n} B, "
+            f"{m.persistent_bytes / st.persistent_bytes:.3f} of it)")
+        assert st.outputs.shape == (n, engine.gen_len), st.outputs.shape
+        assert np.isfinite(st.first_logits).all(), st.round_idx
+        assert st.first_logits.shape == (n, cfg.vocab_size)
+        assert st.prompt_len == m.prompt_len, (st.prompt_len, m.prompt_len)
+    assert stats[1].reuse["prefix_len"] > 0 and \
+        stats[2].reuse["prefix_len"] > 0, [s.reuse for s in stats]
+    # round 0 recomputes under both policies: the same calls, the same bits
+    assert np.array_equal(stats[0].outputs, main[0].outputs)
+    assert np.array_equal(stats[0].first_logits, main[0].first_logits)
+    missing = [k for k in ("flash_prefill", "flash_decode_paged")
+               if launches[k] == 0]
+    assert not missing and ext["launches"] > 0, (launches, ext)
+    assert launches["rope_align"] == launches["block_diff"] == 0, launches
+    ptrs = {t.untyped_storage().data_ptr() for s in engine.sessions.values()
+            for t in (s.dense_k, s.dense_v)}
+    assert len(ptrs) == 2 * n, "sessions share storage"
+    say(f"[prefix] round 0 bit-equal to the main path's; flash_prefill "
+        f"launches by call {rec.split}, of which extend {ext['launches']}; "
+        f"{2 * n} session tensors, each of its own storage")
+    del engine
+
+    (q, k, v), kw = kept["extend"]
+    q_pos, window, kv_len = kw["q_pos"], kw["window"], kw["kv_len"]
+    assert q.shape[1] < k.shape[1] and q.dtype == torch.bfloat16, q.shape
+    errs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
+        got = ops.flash_attention(qq, kk, vv, q_pos=q_pos, window=window,
+                                  kv_len=kv_len)
+        errs[dt] = check("flash_prefill", got, ref.flash_attention_ref(
+            qq, kk, vv, q_pos=q_pos, window=window, kv_len=kv_len), dt)
+        assert torch.equal(got, ops.flash_attention(
+            qq, kk, vv, q_pos=q_pos, window=window, kv_len=kv_len)), \
+            (dt, "two calls differ")
+    t = prefill_times(Timer(dev), q, k, v, q_pos, window, kv_len)
+    p0 = int(q_pos[0, 0].item())
+    say(f"[kernel] flash_prefill at round 2's extend call, q "
+        f"{list(q.shape)} at positions {p0}..{k.shape[1] - 1} over "
+        f"{k.shape[1]} rows, kv_len {kv_len.tolist()}, {q.dtype}: "
+        f"{times_line(t)}, max abs err {errs[torch.bfloat16]:.3g} (bf16) / "
+        f"{errs[torch.float32]:.3g} (f32); two calls bit-equal")
+    say(f"[prefix] phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(name="flash_prefill", call="extend",
+                shape=list(q.shape) + [k.shape[1]],
+                launches=ext["launches"],
+                launches_split={"extend": ext["launches"], **rec.split},
+                max_abs_err=errs[q.dtype],
+                max_abs_err_f32=errs[torch.float32], **t)
+
+
+def slo(qwen):
+    """[slo]: the default engine served under a ``RoundPlanner`` whose
+    model is the main path's round 2 (8 agents, collective). A collective
+    round's latency falls with the agent count at a fixed service time,
+    so a load and an SLO alone admit all agents or none; the pool term
+    makes the cap bind: the budget holds 4 agents' persistent state, and
+    an agent past it pays a recompute round, modelled at twice the
+    measured round. The load is one round a round time and the SLO 1.4
+    round times, which admits 4. Each round must admit min(cap, 8)
+    agents in the planner's round-robin order and leave every deferred
+    agent's session as it was."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (RoundPlanner, ServingEngine,
+                                     max_agents_under_slo,
+                                     service_times_from_stats)
+    from repro_torch.serving.scheduler import round_service_time
+
+    t_phase = time.perf_counter()
+    params, cfg, trace, main = (qwen[k] for k in ("params", "cfg", "trace",
+                                                  "stats"))
+    aids = list(trace.agent_ids)
+    n = len(aids)
+    b = round_service_time(service_times_from_stats(
+        main[2], n, collective=True), n)
+    measured = service_times_from_stats(main[2], n, collective=True,
+                                        recompute_round=2 * b)
+    budget = 4 * measured.persistent_per_agent
+    qps, slo_s = 1.0 / b, 1.4 * b
+    cap = max_agents_under_slo(lambda _: measured, qps, slo_s,
+                               range(1, n + 1), budget)
+    say(f"[slo] model: round 2 of the main path, service {b * 1e3:.1f} ms "
+        f"a round, {measured.persistent_per_agent:.0f} B an agent; pool "
+        f"budget {budget:.0f} B, qps {qps:.4f}, SLO {slo_s * 1e3:.1f} ms "
+        f"-> cap {cap} of {n}")
+    assert 1 < cap < n, cap
+    planner = RoundPlanner(measure=lambda _: measured, qps=qps, slo_s=slo_s,
+                           pool_budget_bytes=budget, refit_every=1)
+    engine = ServingEngine(params, cfg, keep_logits=True)
+    run_round = engine.run_round
+
+    def snapshot(a):
+        s = engine.sessions[a]
+        out = engine.last_outputs.get(a)
+        return (s.state.history.tobytes(), id(s.mirror), id(s.hist_entry),
+                s.family, s.is_master, s.hist_pending,
+                None if out is None else out.tobytes())
+
+    def checked(rnd, plan=None, next_plan=None):
+        before = {a: snapshot(a) for a in plan.deferred}
+        st = run_round(rnd, plan, next_plan)
+        for a, snap in before.items():
+            assert snapshot(a) == snap, (st.round_idx, a, "deferred agent "
+                                         "touched")
+        return st
+
+    engine.run_round = checked
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    stats = engine.serve(trace, planner)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+    cursor = 0
+    for st in stats:
+        adm = st.admission
+        k = min(adm["max_agents"], n)
+        want = [aids[(cursor + i) % n] for i in range(k)]
+        cursor = (cursor + k) % n
+        say(f"[slo] round {st.round_idx}: cap {adm['max_agents']}, admitted "
+            f"{adm['admitted']}, deferred {adm['deferred']}, prompt "
+            f"{st.prompt_len}, round {st.t_round * 1e3:.1f} ms")
+        assert adm["admitted"] == want, (st.round_idx, adm, want)
+        assert adm["deferred"] == [a for a in aids if a not in want]
+        assert st.n_agents == k and st.outputs.shape == (k, engine.gen_len)
+        assert np.isfinite(st.first_logits).all(), st.round_idx
+    assert stats[0].admission["max_agents"] == cap
+    assert not any(plain.values()), f"plain versions ran: {plain}"
+    say(f"[slo] serve {wall:.2f} s, refits {planner.refits}, launches "
+        f"{launches}; every deferred agent's session untouched")
+    say(f"[slo] phase {time.perf_counter() - t_phase:.1f} s")
+    del engine
+
+
+def continuous(qwen):
+    """[continuous]: ``ContinuousEngine`` with the TokenDance policy on 6
+    agents in committees of 2 (``generative_agents``, 3 rounds, seed 11,
+    arrivals at ticks 0, 8, 16: ``benchmarks/capacity.py``'s
+    continuous_serving) at full width, against the synchronized engine
+    on the same topology: per-agent outputs and first-token logits
+    bit-equal; counts zeroed before the continuous serve, read after."""
+    from repro_torch.core.rounds import SubsetGather, generate_trace
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ContinuousEngine, ServingEngine
+
+    t_phase = time.perf_counter()
+    params, cfg = qwen["params"], qwen["cfg"]
+    aids = [f"agent{i}" for i in range(6)]
+    kw = dict(topology=SubsetGather.grouped(aids, 2), gen_len=32,
+              recompute_ratio=0.1, keep_logits=True)
+
+    def trace():
+        return generate_trace("generative_agents", 6, 3, cfg.vocab_size,
+                              seed=11, jitter_hist=False)
+
+    t0 = time.perf_counter()
+    oracle = ServingEngine(params, cfg, **kw).serve(trace())
+    torch.cuda.synchronize()
+    t_sync = time.perf_counter() - t0
+    cont = ContinuousEngine(params, cfg, "tokendance", **kw)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = cont.serve(trace(), stagger=[0, 8, 16])
+    torch.cuda.synchronize()
+    t_cont = time.perf_counter() - t0
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+    for r, st in enumerate(oracle):
+        assert st.admission is None and st.outputs.shape == (6, 32)
+        for i, a in enumerate(aids):
+            assert np.array_equal(res.outputs[a][r], st.outputs[i]), (a, r)
+            assert np.array_equal(res.logits[a][r], st.first_logits[i]), \
+                (a, r)
+        assert np.isfinite(st.first_logits).all(), r
+    say(f"[continuous] prompts {[s.prompt_len for s in oracle]}; per-agent "
+        f"outputs and first-token logits bit-equal to the synchronized "
+        f"engine in all 3 rounds x 6 agents")
+    say(f"[continuous] counted makespan {res.makespan_steps} steps against "
+        f"{res.sync_makespan_steps} synchronized, overlap steps "
+        f"{res.overlap_steps}, restore-overlap events "
+        f"{res.restore_overlap_events}, timeline events "
+        f"{len(res.timeline)}; wall {t_cont:.2f} s continuous, "
+        f"{t_sync:.2f} s synchronized")
+    say(f"[continuous] launches {launches}  plain-version calls {plain}")
+    assert res.makespan_steps < res.sync_makespan_steps, res.makespan_steps
+    assert res.overlap_steps > 0 and res.restore_overlap_events > 0
+    missing = [k for k in ("rope_align", "block_diff", "flash_prefill",
+                           "flash_decode_paged") if launches[k] == 0]
+    assert not missing, f"kernels never launched: {missing}"
+    assert not any(plain.values()), f"plain versions ran: {plain}"
+    cont.engine.manager.check()
+    say(f"[continuous] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------------------- phase 5
 def hybrid(dev):
     """Hymba-1.5B at full width through the engine's normal entry point;
@@ -1160,13 +1420,15 @@ def smoke_parity(dev):
             return {k: to_dev(v) for k, v in tree.items()}
         return tree.to(dev)
 
-    for arch in ("qwen2.5-7b", "hymba-1.5b"):
+    for arch, policy in (("qwen2.5-7b", "tokendance"),
+                         ("qwen2.5-7b", "prefix"),
+                         ("hymba-1.5b", "tokendance")):
         cfg = get_smoke_config(arch).replace(dtype="float32")
         cpu_params = init_params(cfg, 0, device="cpu")
         gpu_params = to_dev(cpu_params)
         out = {}
         for name, params in (("cpu", cpu_params), ("cuda", gpu_params)):
-            eng = ServingEngine(params, cfg, "tokendance", gen_len=32,
+            eng = ServingEngine(params, cfg, policy, gen_len=32,
                                 recompute_ratio=0.1, keep_logits=True)
             out[name] = eng.serve(generate_trace(
                 "generative_agents", 3, 3, cfg.vocab_size, seed=11,
@@ -1366,10 +1628,16 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = card()
     build()
-    launches, kept, priv, n_heads, split, rope_split = main_path(dev)
+    launches, kept, priv, n_heads, split, rope_split, qwen = main_path(dev)
     table = kernels(dev, launches, kept, split, rope_split)
     table += table_rows([paged_prefill(dev, priv, n_heads)])
     del priv
+    table += table_rows([prefix(dev, qwen)])
+    slo(qwen)
+    continuous(qwen)
+    del qwen
+    gc.collect()        # the engines' reference cycles hold the weights
+    torch.cuda.empty_cache()
     hlaunches, hkept = hybrid(dev)
     hybrid_prefill(dev, hkept)
     table += table_rows([decode_kernel(dev, hlaunches, hkept,

@@ -11,6 +11,7 @@ Python loop in eager mode. Public API:
   from_jax(params_np, cfg, device=None)     -> params (the JAX weights)
   prefill(params, cfg, tokens, ...)         -> logits, cache
   make_empty_cache(cfg, batch, max_len, ...) -> cache
+  extend(params, cfg, tokens, cache)        -> logits, cache (chunked prefill)
   decode_step(params, cfg, token, cache)    -> logits, cache (dense KV)
   decode_step_paged(params, cfg, token, cache) -> logits, cache (pages)
 
@@ -266,6 +267,55 @@ def make_empty_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
             (L, batch, ssm_mod.D_CONV - 1, cfg.d_inner + 2 * cfg.ssm_state),
             dtype=dt, device=dev)
     return cache
+
+
+def extend(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+           cache: dict):
+    """Extend a dense cache by T known tokens in one pass (chunked
+    prefill: the prefix-cache policy's suffix compute).
+
+    ``tokens`` ``[B, T]``; ``cache``: ``length`` int32 ``[B]`` (rows
+    cached, valid from position 0) and ``k``/``v`` ``[L, B, max_len, KV,
+    hd]`` as :func:`prefill` returns them. Token t of sequence b sits at
+    position ``length[b] + t``; its RoPE'd K/V is written into that row,
+    IN PLACE, in the cache's dtype (the caller owns the cache, as in
+    :func:`decode_step`). Attention runs through the prefill kernel with
+    ``q_pos`` at those positions and ``kv_len = length + T``, so rows past
+    the new tokens are never read. Attention caches only: an SSM or hybrid
+    model raises ``ValueError``. Returns (logits ``[B, T, V]``, cache with
+    ``length + T``).
+    """
+    check_supported(cfg)
+    if cfg.has_ssm or not cfg.has_attention:
+        raise ValueError("extend() supports attention caches; use "
+                         "prefill/decode for SSM state")
+    B, T = tokens.shape
+    h = params["embed"][tokens].to(dtype_of(cfg))
+    length = cache["length"]
+    positions = length[:, None] + torch.arange(
+        T, dtype=torch.int32, device=tokens.device)
+    cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    kc, vc = cache["k"], cache["v"]
+    windows = _windows(cfg, kc.shape[2])
+    rows = torch.arange(B, device=tokens.device)[:, None]
+    at = positions.long()
+    kv_len = length + T
+    for l in range(cfg.n_layers):
+        p = layer(params, l)
+        x = rmsnorm(h, p["ln1"], cfg.rmsnorm_eps)
+        q, k, v = project_qkv(x, p["attn"], cfg)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        kc[l][rows, at] = k.to(kc.dtype)
+        vc[l][rows, at] = v.to(vc.dtype)
+        o = ops.flash_attention(
+            q.to(torch.promote_types(q.dtype, kc.dtype)).contiguous(),
+            kc[l], vc[l], q_pos=positions, window=windows[l], kv_len=kv_len)
+        h = h + out_proj(o, p["attn"])
+        h = h + swiglu_mlp(rmsnorm(h, p["ln2"], cfg.rmsnorm_eps), p["mlp"])
+    new_cache = dict(cache)
+    new_cache["length"] = kv_len
+    return logits_of(params, cfg, h), new_cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,

@@ -14,16 +14,28 @@ paged loop is pinned against. An SSM or hybrid model is served with the
 recompute policy whatever policy is asked for: PIC-style reuse does not
 apply to SSM state.
 
+The four registered policies share the model, the decode loop and the
+accounting, so measured differences come from the reuse strategy:
+
+  RecomputePolicy    — vLLM without reuse: full batched prefill a round
+  PrefixCachePolicy  — vLLM + prefix caching: exact own-prefix reuse
+  PICPolicy          — CacheBlend: per-request PIC recovery passes
+  TokenDancePolicy   — the paper: collective recovery (one shared pass a
+                       group) + Master-Mirror diffs + fused restore
+
 The engine runs on the device of its parameters. ``run_round`` takes a
 :class:`~repro_torch.serving.planner.RoundPlan` (admission subset and
 topology override) and the next round's plan (restore-ahead prefetch);
-``serve(trace, planner, n_rounds)`` asks a caller's planner for both.
-The SLO planner that emits plans and the continuous engine of the JAX
-package are not ported yet.
+``serve(trace, planner, n_rounds)`` asks a planner
+(:class:`~repro_torch.serving.planner.RoundPlanner`, SLO admission) for
+both. ``serving/loop`` drives the same pieces per committee
+(``ContinuousEngine``). ``MultiAgentEngine(mode=...)`` remains as a
+deprecated string-keyed shim.
 """
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
@@ -43,8 +55,10 @@ from repro_torch.serving.planner import RoundPlan
 from repro_torch.serving.policies import (PolicyRuntime, ReusePolicy,
                                           RoundContext, get_policy)
 from repro_torch.serving.policies.base import sync
-from repro_torch.serving.pool import PoolManager, parse_owner
+from repro_torch.serving.pool import HostTier, PoolManager, parse_owner
 from repro_torch.serving.state import RoundStats, Session
+
+MODES = ("recompute", "prefix", "pic", "tokendance")
 
 
 @dataclass
@@ -84,7 +98,10 @@ class ServingEngine:
         block_select: int = 32,
         check_layer: int = 1,
         pool_pages: int = 1 << 16,
+        eviction="family",
+        host_offload: bool = True,
         paged_decode: bool = True,
+        keep_recovered: bool = False,
         keep_logits: bool = False,
     ):
         check_supported(cfg)
@@ -95,8 +112,12 @@ class ServingEngine:
             # PIC-style reuse is inapplicable to SSM/hybrid state; those
             # architectures serve via full recompute
             policy = get_policy("recompute")
-        assert block_select > 0 and gen_len % block_select == 0, \
+        assert block_select == 0 or gen_len % block_select == 0, \
             "gen_len must be block-aligned so histories stay aligned"
+        if block_select == 0 and policy.requires_blocks:
+            # the JAX package raises ZeroDivisionError at round 1's plan
+            raise ValueError(f"the {policy.name} policy selects KV blocks; "
+                             f"it needs block_select > 0")
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
@@ -107,13 +128,20 @@ class ServingEngine:
         self.sessions: Dict[str, Session] = {}
         self.segment_index = SegmentIndex()
         self.pool = PagedKVPool(cfg, pool_pages)
-        # tiered layer over the pool: family-aware eviction + an
-        # unbounded host tier
-        self.manager = PoolManager(self.pool, device=self.device)
+        # tiered layer over the pool: family-aware eviction + host
+        # offload. host_offload=False gives the host tier capacity 0: a
+        # full pool raises PoolExhausted as a plain pool does
+        self.manager = PoolManager(
+            self.pool, device=self.device, eviction=eviction,
+            host=HostTier(None if host_offload else 0))
         # decode over round pool pages; False keeps the dense
         # [L, N, S+G] decode loop, the oracle the paged loop is pinned
         # against bit for bit
         self.paged_decode = paged_decode
+        # keep each round's recovered KV (host copies) on last_recovered
+        self.keep_recovered = keep_recovered
+        self.last_recovered: Optional[tuple] = None
+        self._recovered_parts: list = []
         # record per-round first-token logits on RoundStats (host copy of
         # [N, vocab] per round — parity-test food, off by default)
         self.keep_logits = keep_logits
@@ -128,6 +156,7 @@ class ServingEngine:
             device=self.device)
         policy.bind(self.rt)
         self.policy = policy
+        self.mode = policy.name          # the JAX package's alias
         self.round_idx = 0
         self.last_outputs: Dict[str, np.ndarray] = {}
         #: owners the next round's restores read, still to prefetch
@@ -268,7 +297,7 @@ class ServingEngine:
         # an agent with no output yet (deferred since round 0) contributes
         # its trace block instead
         if self.round_idx > 0 and self.last_outputs:
-            fallback = dict(zip(rnd.tasks, list(rnd.shared_blocks)))
+            fallback = self._replay_fallback_blocks(rnd)
             shared = []
             for a in self.sessions:
                 prev = self.last_outputs.get(a, fallback.get(a))
@@ -302,6 +331,8 @@ class ServingEngine:
         out_rows: Dict[str, np.ndarray] = {}
         logit_rows: Dict[str, np.ndarray] = {}
         sources = topology.sources(all_ids)
+        if self.keep_recovered:
+            self._recovered_parts = []
         for gi, gaids in enumerate(groups):
             parts = self._build_prompts(rnd, gaids, sources)
             for pj, (paids, tokens_np, layouts) in enumerate(parts):
@@ -317,6 +348,12 @@ class ServingEngine:
             if self.keep_logits:
                 stats.first_logits = np.stack(
                     [logit_rows[a] for a in admitted])
+        if self.keep_recovered and self._recovered_parts:
+            # one batch (the All-Gather norm): the (k, v, layouts) tuple;
+            # several batches: one tuple a batch
+            self.last_recovered = (self._recovered_parts[0]
+                                   if len(self._recovered_parts) == 1
+                                   else self._recovered_parts)
         stats.transient_peak_bytes = self.pool.peak_bytes()
         self.manager.free_transient()
         if self._prefetch_pending:   # retry now that transients are free
@@ -359,6 +396,9 @@ class ServingEngine:
                 stats.merge_reuse(k_, v_)
         if rplan.restore_info is not None:
             stats.merge_reuse("restore", rplan.restore_info)
+        if self.keep_recovered and "k" in res.cache:
+            self._recovered_parts.append(
+                (res.cache["k"].cpu(), res.cache["v"].cpu(), list(layouts)))
 
         # transient working set: the restore pool claimed during plan()
         # is reclaimed here, after its peak registered. Dense decode
@@ -396,6 +436,13 @@ class ServingEngine:
         logits_np = (res.logits.float().cpu().numpy() if self.keep_logits
                      else [None] * N)
         return [(a, outputs[i], logits_np[i]) for i, a in enumerate(gaids)]
+
+    # ------------------------------------------------------------------
+    def _replay_fallback_blocks(self, rnd: Round) -> Dict[str, np.ndarray]:
+        """Trace blocks keyed by agent id, for agents with no output yet
+        in generate mode (``rnd.tasks`` keeps the trace's agent order, so
+        block j belongs to agent j)."""
+        return dict(zip(rnd.tasks, list(rnd.shared_blocks)))
 
     # ------------------------------------------------------------------
     def _persistent_split(self) -> Tuple[int, int, int]:
@@ -459,3 +506,26 @@ class ServingEngine:
                   n_rounds: Optional[int] = None) -> List[RoundStats]:
         """:meth:`serve` without a planner."""
         return self.serve(trace, n_rounds=n_rounds)
+
+
+class MultiAgentEngine(ServingEngine):
+    """Deprecated mode-string front door, kept for compatibility.
+
+    ``MultiAgentEngine(params, cfg, "tokendance")`` resolves the mode
+    string through the policy registry and behaves bit-exactly like
+    ``ServingEngine(params, cfg, TokenDancePolicy())``. New code should
+    construct a policy object."""
+
+    def __init__(self, params: dict, cfg: ModelConfig, mode: str, *,
+                 paged_history: bool = True, paged_attention: bool = True,
+                 incremental: bool = True, **kw):
+        warnings.warn(
+            "MultiAgentEngine(mode=...) is deprecated; pass a ReusePolicy "
+            "to ServingEngine (e.g. ServingEngine(params, cfg, "
+            "TokenDancePolicy())) instead.",
+            DeprecationWarning, stacklevel=2)
+        policy_kw = ({"paged_history": paged_history,
+                      "paged_attention": paged_attention,
+                      "incremental": incremental}
+                     if mode == "tokendance" else {})
+        super().__init__(params, cfg, get_policy(mode, **policy_kw), **kw)

@@ -107,11 +107,13 @@ class RoundContext:
 @dataclass
 class RecoveryPlan:
     """Host-side planning result: ``kind`` is ``"recompute"`` (full
-    prefill — round 0 and the nothing-cached fallback) or ``"reuse"``
-    (collective PIC recovery over ``assembled``)."""
+    prefill — round 0 and the nothing-cached fallback), ``"extend"``
+    (prefix reuse of ``prefix_len`` tokens) or ``"reuse"`` (collective
+    PIC recovery over ``assembled``)."""
 
     kind: str
     ctx: RoundContext
+    prefix_len: int = 0
     n_sel: int = 0
     assembled: Optional[tuple] = None   # (sk, sv, src, smask, priv, pmask, is_cached)
     t_restore: float = 0.0              # mirror restore spent during plan
@@ -135,6 +137,8 @@ class ReusePolicy(ABC):
     #: PIC-style reuse needs attention KV; the engine serves an SSM or
     #: hybrid model with the recompute policy instead
     requires_attention: bool = False
+    #: plans in whole KV blocks: the engine refuses ``block_select=0``
+    requires_blocks: bool = False
 
     def __init__(self) -> None:
         self.rt: Optional[PolicyRuntime] = None

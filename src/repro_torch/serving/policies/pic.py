@@ -31,6 +31,7 @@ class PICPolicy(ReusePolicy):
     """Per-request position-independent cache recovery (CacheBlend)."""
 
     requires_attention = True
+    requires_blocks = True
     #: subclasses flip this to drive ONE grouped pass per round
     collective = False
     #: paged histories take the collector's zero-densify path (False: the

@@ -46,6 +46,11 @@ class RoundStats:
 class Session:
     agent_id: str
     state: AgentState
+    # prefix policy: the agent's dense cache (its own storage) + the
+    # prompt and outputs it holds
+    dense_k: Optional[object] = None       # [L, S+G, KV, hd] tensor
+    dense_v: Optional[object] = None
+    prompt_tokens: Optional[np.ndarray] = None
     # history segment cache, set by the family restore each round
     hist_entry: Optional[object] = None   # SegmentCacheEntry | PagedSegmentCacheEntry
     # tokendance: compressed persistent state

@@ -419,8 +419,10 @@ def test_policy_registry():
     assert get_policy("pic").name == "pic"
     assert get_policy("tokendance").collective
     assert not get_policy("pic").collective
+    # the prefix baseline is registered too
+    assert get_policy("prefix").name == "prefix"
     with pytest.raises(KeyError):
-        get_policy("prefix")
+        get_policy("vllm")
 
 
 def test_dense_round_kv_slices_equal_the_paged_view():

@@ -433,6 +433,23 @@ def test_gpu_flash_attention(cuda, dtype, H, KV, hd):
     assert torch.equal(ops.flash_attention(q, k, v, q_pos=sel, window=Sk),
                        got), "two calls differ"
     _close(got, ref.flash_attention_ref(q, k, v, q_pos=sel, window=Sk), dtype)
+    # extend's call: the queries of a suffix at positions p..S-1 (Sq < Sk)
+    # over a cache of 256 rows that holds S = 217, kv_len S; rows past S
+    # hold large values that must not reach the output
+    S, p, rows = 217, 100, 256
+    pos = (p + torch.arange(S - p, device=cuda, dtype=torch.int32)).expand(
+        B, S - p).contiguous()
+    q = torch.randn(B, S - p, H, hd, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, rows, KV, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, rows, KV, hd, generator=g, device=cuda).to(dtype)
+    k[:, S:], v[:, S:] = 300.0, -300.0
+    kl = torch.full((B,), S, device=cuda, dtype=torch.int32)
+    for w in (rows, 60):
+        got = ops.flash_attention(q, k, v, q_pos=pos, window=w, kv_len=kl)
+        assert torch.equal(ops.flash_attention(q, k, v, q_pos=pos, window=w,
+                                               kv_len=kl), got), w
+        _close(got, ref.flash_attention_ref(q, k, v, q_pos=pos, window=w,
+                                            kv_len=kl), dtype)
 
 
 def _held(got, want, dtype, what):
