@@ -64,7 +64,33 @@ Phases (each prints its lines; any failure exits non-zero):
      per-agent outputs and first-token logits bit-equal, counted
      makespan below the synchronized one, every TokenDance kernel
      launched and no plain version;
-  9. [hybrid] Hymba-1.5B at full width (32 layers, bf16, random weights
+  9. [forward] ``transformer.forward`` on the main path's weights over
+     tokens [8, 544] from a seeded generator: 28 ``flash_prefill``
+     launches and no plain version, logits bit-equal to
+     ``prefill(max_len=544)``'s, ``return_hidden`` the pre-norm state
+     they are read from, a CUDA-event time. Then the main path's weights
+     are dropped and the allocated bytes printed: they must fall by the
+     weights' size with no ``gc.collect()`` (no reference cycle holds an
+     engine), as after each of the next three phases;
+  10. [qwen2.5-14b] Qwen2.5-14B at full width (48 layers, 40 query heads
+     over 8, G 5, head dim 128, bf16 weights random from seed 0) served
+     by ``ServingEngine(params, cfg)`` on the main path's trace (counts
+     zeroed before, read after; every main-path kernel launched, no plain
+     version), with per-round persistent bytes an agent, compression and
+     restore pages, and the peak memory; then every kernel of the path
+     against its plain version on that run's largest calls (the fresh,
+     selective and round-0 prefill calls, paged decode, both alignment
+     calls, block_diff) in bf16 and f32, twice for the same bits, with
+     CUDA-event times, bound and SDPA of the f32 calls;
+  11. [qwen3-4b] Qwen3-4B at full width (36 layers, G 4, ``qk_norm``) the
+     same way (checks without times), then with ``paged_decode=False`` on
+     the same weights: outputs, first-token logits and persistent bytes
+     bit-equal to the paged run (``qk_norm`` reaches both decode loops
+     through one projection);
+  12. [qwen2-72b] Qwen2-72B at its published widths (d 8192, 64 query
+     heads over 8, G 8: the decode kernels' largest group) with the depth
+     cut to 20 of 80 layers, as [qwen2.5-14b], timed;
+  13. [hybrid] Hymba-1.5B at full width (32 layers, bf16, random weights
      from seed 0) served by ``ServingEngine(params, cfg, "tokendance")``
      on the same trace: the engine falls back to the recompute policy and
      the dense decode loop; counts zeroed before and read after,
@@ -80,11 +106,12 @@ Phases (each prints its lines; any failure exits non-zero):
      binding window of 1024 and ragged lengths, and at Sk 4096 (more
      than 32 splits a pair); CUDA-event times of kernel, plain version
      and SDPA with a mask in both types, and the host time of one call;
-  10. the f32 smoke configurations (Qwen2.5-7B with TokenDance and with
-     the prefix policy, Hymba-1.5B with its recompute fallback) served on
-     the card against the same engine on the CPU: greedy tokens and
-     ledgers equal, logits within atol 1e-3;
-  11. [restore] the storage walkthrough
+  14. the f32 smoke configurations (Qwen2.5-7B with TokenDance and with
+     the prefix policy, Hymba-1.5B with its recompute fallback,
+     Qwen2.5-14B, Qwen3-4B and Qwen2-72B with TokenDance) served on the
+     card against the same engine on the CPU: greedy tokens and ledgers
+     equal, logits within atol 1e-3;
+  15. [restore] the storage walkthrough
      (``repro_torch.examples.compression_demo.walkthrough``) at Qwen2.5-7B
      full width (28 layers, bf16 weights, random from seed 0): 8 agents,
      private prefix 32, one 128-token shared block each (S 1056, nb 33),
@@ -100,7 +127,6 @@ the result as JSON.
 """
 from __future__ import annotations
 
-import gc
 import json
 import statistics
 import subprocess
@@ -440,6 +466,19 @@ def serve_phase(tag, engine, trace, ops):
     return stats, launches, rec
 
 
+def bit_equal(tag, stats, other, what):
+    """Outputs, first-token logits and persistent bytes of two serves of
+    one trace equal to the last bit, round by round."""
+    for st, os_ in zip(stats, other):
+        assert np.array_equal(os_.outputs, st.outputs), (tag, st.round_idx)
+        assert np.array_equal(os_.first_logits, st.first_logits), \
+            (tag, st.round_idx)
+        assert os_.persistent_bytes == st.persistent_bytes, \
+            (tag, st.round_idx)
+    say(f"[{tag}] outputs, first-token logits and persistent bytes "
+        f"bit-equal to {what} in all {len(other)} rounds")
+
+
 def main_path(dev):
     from repro_torch.configs import get_config
     from repro_torch.core.collector import PagedPrivate
@@ -510,15 +549,7 @@ def main_path(dev):
     del engine
 
     def same(tag, other):
-        for st, os_ in zip(stats, other):
-            assert np.array_equal(os_.outputs, st.outputs), (tag,
-                                                             st.round_idx)
-            assert np.array_equal(os_.first_logits, st.first_logits), \
-                (tag, st.round_idx)
-            assert os_.persistent_bytes == st.persistent_bytes, \
-                (tag, st.round_idx)
-        say(f"[{tag}] outputs, first-token logits and persistent bytes "
-            f"bit-equal to the main path in all {len(other)} rounds")
+        bit_equal(tag, stats, other, "the main path")
 
     # [full]: the same weights and trace, every family rebuilt each round
     engine = ServingEngine(params, cfg, TokenDancePolicy(incremental=False),
@@ -1107,6 +1138,7 @@ def slo(qwen):
     say(f"[slo] serve {wall:.2f} s, refits {planner.refits}, launches "
         f"{launches}; every deferred agent's session untouched")
     say(f"[slo] phase {time.perf_counter() - t_phase:.1f} s")
+    del engine.run_round          # the check holds the engine
     del engine
 
 
@@ -1167,6 +1199,316 @@ def continuous(qwen):
     assert not any(plain.values()), f"plain versions ran: {plain}"
     cont.engine.manager.check()
     say(f"[continuous] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ------------------------------------------------------ the Qwen family
+def gib(n_bytes):
+    return n_bytes / 2 ** 30
+
+
+def tensors(tree):
+    """The tensors of a nested dict of parameters."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensors(v)]
+    return [tree]
+
+
+def freed(tag, before, weights):
+    """After ``del`` of a phase's engines and weights, and before any
+    collector run: the allocated bytes, which must have dropped by the
+    weights' size (no reference cycle keeps them)."""
+    torch.cuda.synchronize()
+    now = torch.cuda.memory_allocated()
+    say(f"[{tag}] after del: {gib(now):.2f} GiB allocated (was "
+        f"{gib(before):.2f} with the weights, {gib(weights):.2f} GiB of "
+        f"them), no gc.collect()")
+    assert before - now >= 0.99 * weights, (tag, before, now, weights)
+    torch.cuda.empty_cache()
+
+
+def forward_phase(dev, qwen):
+    """[forward]: ``transformer.forward`` on the main path's Qwen2.5-7B
+    weights over tokens [8, 544] from a seeded generator (counts zeroed
+    before, read after): one ``flash_prefill`` launch a layer and no plain
+    version; its logits bit-equal to ``prefill(max_len=544)``'s and the
+    ``return_hidden`` state the pre-norm one they are read from; timed
+    with CUDA events."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward, prefill
+    from repro_torch.models.transformer import logits_of
+
+    t_phase = time.perf_counter()
+    params, cfg = qwen["params"], qwen["cfg"]
+    B, S = 8, 544
+    g = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device=dev)
+    ops.reset_launches()
+    logits, aux = forward(params, cfg, tokens)
+    torch.cuda.synchronize()
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+    say(f"[forward] {cfg.name}, tokens [{B}, {S}] from seed 0: launches "
+        f"{launches}  plain-version calls {plain}")
+    assert launches["flash_prefill"] == cfg.n_layers, launches
+    assert sum(launches.values()) == cfg.n_layers, launches
+    assert not any(plain.values()), f"plain versions ran: {plain}"
+    assert logits.shape == (B, S, cfg.vocab_size), logits.shape
+    assert logits.dtype == torch.float32 and bool(logits.isfinite().all())
+    assert aux.shape == () and float(aux) == 0.0, aux
+    pl, _ = prefill(params, cfg, tokens, max_len=S)
+    assert torch.equal(logits, pl), "forward != prefill(max_len=S)"
+    del pl
+    hidden, _ = forward(params, cfg, tokens, return_hidden=True)
+    assert hidden.shape == (B, S, cfg.d_model), hidden.shape
+    assert torch.equal(logits_of(params, cfg, hidden), logits), \
+        "return_hidden is not the state the logits are read from"
+    del hidden, logits
+    ms = Timer(dev)(lambda: forward(params, cfg, tokens), reps=5, warm=1)
+    say(f"[forward] logits bit-equal to prefill(max_len={S})'s; "
+        f"return_hidden gives the pre-norm hidden state; forward "
+        f"{ms:.2f} ms (CUDA events, median of 5)")
+    say(f"[forward] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def serve_qwen(dev, arch, n_layers=None):
+    """One Qwen config at its published widths (``n_layers`` cuts the
+    depth), bf16 weights random from seed 0, served by
+    ``ServingEngine(params, cfg)`` with its defaults on the main path's
+    trace; counts zeroed before and read after. Returns the weights, the
+    stats, the launches and the Recorder."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.rounds import generate_trace
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config(arch)
+    tag = cfg.name
+    full = cfg.n_layers
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    cut = (f"{cfg.n_layers} of {full} layers (depth cut: "
+           f"~{get_config(arch).param_count() / 1e9:.1f} B params in all)"
+           if cfg.n_layers < full else
+           f"{cfg.n_layers} of {full} layers (no depth cut)")
+    say(f"[{tag}] {cut}, d {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} (G {cfg.n_heads // cfg.n_kv_heads}), head_dim "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+        f", qk_norm {cfg.qk_norm}, attn_bias {cfg.attn_bias}, {cfg.dtype}, "
+        f"~{cfg.param_count() / 1e9:.2f} B params served")
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - before
+    say(f"[{tag}] init_params(seed 0) {time.perf_counter() - t0:.1f} s, "
+        f"weights {gib(weights):.2f} GiB")
+    trace = generate_trace("agent_society", 8, 3, cfg.vocab_size, seed=0,
+                           jitter_hist=False)
+    engine = ServingEngine(params, cfg, keep_logits=True)
+    torch.cuda.reset_peak_memory_stats()
+    stats, launches, rec = serve_phase(tag, engine, trace, ops)
+    peak = torch.cuda.max_memory_allocated()
+    n = len(trace.agent_ids)
+    for st in stats:
+        comp = st.reuse.get("compression", {})
+        say(f"[{tag}] round {st.round_idx}: persistent "
+            f"{st.persistent_bytes // n} B an agent, compression "
+            f"{comp.get('compression_ratio', 1.0):.4f}x, "
+            f"{restore_line(st.reuse.get('restore'))}")
+        assert st.outputs.shape == (n, engine.gen_len), st.outputs.shape
+        assert ((st.outputs >= 0) & (st.outputs < cfg.vocab_size)).all()
+        assert np.isfinite(st.first_logits).all(), st.round_idx
+        assert st.first_logits.shape == (n, cfg.vocab_size)
+        if st.round_idx:
+            assert comp["compression_ratio"] > 1.0, comp
+    r2 = stats[2].reuse["restore"]
+    assert r2["incremental"] is True and r2["pool_pages"] < \
+        r2["full_write_pages"], r2
+    missing = [k for k in ("rope_align", "block_diff", "flash_prefill",
+                           "flash_decode_paged") if launches[k] == 0]
+    assert not missing, f"kernels never launched on {tag}'s path: {missing}"
+    say(f"[{tag}] flash_prefill launches by call: {rec.split}; rope_align "
+        f"by call: {rec.rope_split}; peak device memory {gib(peak):.2f} "
+        f"GiB (weights {gib(weights):.2f})")
+    del engine
+    return dict(params=params, cfg=cfg, trace=trace, stats=stats,
+                launches=launches, rec=rec, peak=peak, weights=weights,
+                before=before + weights)
+
+
+def hold_kernels(tag, dev, served, timed):
+    """Each kernel of the path against its plain version on the inputs of
+    its largest call in ``served``'s run (and round 0's bf16 prefill, the
+    recovery's selective call and the decode tails' alignment), in bf16
+    and f32; the decode kernel and the store-side pair twice for the same
+    bits. ``timed``: CUDA-event times, bound and SDPA of the f32 calls
+    (the path's type from round 1) as kernel-table rows."""
+    from repro_torch.kernels import ops, ref
+
+    kept, launches = served["rec"].kept, served["launches"]
+    split, rope_split = served["rec"].split, served["rec"].rope_split
+    timer = Timer(dev) if timed else None
+    rows, errs = [], {}
+
+    def both(name, fn, plain, args, twice=False):
+        for dt in (torch.bfloat16, torch.float32):
+            a = [x.to(dt) if torch.is_tensor(x) and x.is_floating_point()
+                 else x for x in args]
+            got = fn(*a)
+            errs[(name, dt)] = check(name.split(":")[0], got, plain(*a), dt)
+            if twice:
+                assert torch.equal(fn(*a), got), (tag, name, dt,
+                                                  "two calls differ")
+
+    def attn(key):
+        _, (q, k, v), kw = kept[key]
+        return q, k, v, kw["q_pos"], kw["window"], kw.get("kv_len")
+
+    for key, call in (("flash_attention", "fresh"),
+                      ("flash_attention_selected", "selective"),
+                      ("flash_attention_bf16", "round 0")):
+        if key not in kept:       # no selective layer under check_layer
+            assert served["cfg"].n_layers <= 2, (tag, key)
+            continue
+        q, k, v, q_pos, window, kv_len = attn(key)
+        both(f"flash_prefill:{call}",
+             lambda q, k, v: ops.flash_attention(q, k, v, q_pos=q_pos,
+                                                 window=window,
+                                                 kv_len=kv_len),
+             lambda q, k, v: ref.flash_attention_ref(
+                 q, k, v, q_pos=q_pos, window=window, kv_len=kv_len),
+             (q, k, v), twice=True)
+        say(f"[{tag}] flash_prefill {call}: q {list(q.shape)} over "
+            f"{k.shape[1]} rows ({q.dtype} on the path), max abs err "
+            f"{errs[(f'flash_prefill:{call}', torch.bfloat16)]:.3g} (bf16) / "
+            f"{errs[(f'flash_prefill:{call}', torch.float32)]:.3g} (f32)")
+        if timed and call != "round 0":
+            t = prefill_times(timer, q.float(), k.float(), v.float(), q_pos,
+                              window, kv_len)
+            say(f"[kernel] flash_prefill, {tag} {call} call, f32: "
+                f"{times_line(t)}")
+            rows.append(dict(
+                name="flash_prefill", call=f"{tag} {call}",
+                shape=list(q.shape) + [k.shape[1]],
+                launches=split["f32 fresh" if call == "fresh" else
+                               "f32 selective"], launches_split=split,
+                max_abs_err=errs[(f"flash_prefill:{call}", q.dtype)],
+                max_abs_err_f32=errs[(f"flash_prefill:{call}",
+                                      torch.float32)], **t))
+
+    _, args, _ = kept["flash_decode_paged"]
+    q, pk, pv, pidx, span = args[:5]
+    both("flash_decode_paged", ops.flash_decode_paged,
+         ref.flash_decode_paged_ref, (q, pk, pv, pidx, span), twice=True)
+    B, H, hd = q.shape
+    bt, KV = pk.shape[1], pk.shape[2]
+    nbt = pidx.shape[1]
+    say(f"[{tag}] flash_decode_paged: q {list(q.shape)} (G {H // KV}) over "
+        f"{nbt} pages of {bt}, span {span.tolist()}, max abs err "
+        f"{errs[('flash_decode_paged', torch.bfloat16)]:.3g} (bf16) / "
+        f"{errs[('flash_decode_paged', torch.float32)]:.3g} (f32); two "
+        f"calls bit-equal")
+    if timed:
+        a = [q.float(), pk.float(), pv.float(), pidx, span]
+        cols = int(span.long().sum().item())
+        mask = torch.arange(nbt * bt, device=dev)[None] < span[:, None]
+        kd = a[1][pidx.long()].reshape(B, nbt * bt, KV, hd)
+        vd = a[2][pidx.long()].reshape(B, nbt * bt, KV, hd)
+        t = decode_times(
+            timer, lambda: ops.flash_decode_paged(*a),
+            lambda: ref.flash_decode_paged_ref(*a),
+            sdpa_decode(a[0], kd, vd, mask),
+            nbytes(a[0], pidx, span) + nbytes(a[0])
+            + 2 * cols * KV * hd * 4, 4 * hd * H * cols, torch.float32)
+        del kd, vd
+        say(f"[kernel] flash_decode_paged, {tag} call, f32: "
+            f"{times_line(t)}")
+        rows.append(dict(
+            name="flash_decode_paged", call=tag,
+            shape=list(q.shape) + [nbt * bt],
+            launches=launches["flash_decode_paged"],
+            max_abs_err=errs[("flash_decode_paged", q.dtype)],
+            max_abs_err_f32=errs[("flash_decode_paged", torch.float32)],
+            **t))
+
+    for key in ("rope_align", "rope_align_per_request"):
+        if key not in kept:
+            continue
+        _, (k, delta, theta), _ = kept[key]
+        both(f"rope_align:{key}", lambda k: ops.rope_align(k, delta, theta),
+             lambda k: ref.rope_delta_ref(k, delta, theta), (k,),
+             twice=True)
+        say(f"[{tag}] {key}: k {list(k.shape)} by delta "
+            f"{list(delta.shape)}, max abs err "
+            f"{errs[(f'rope_align:{key}', torch.bfloat16)]:.3g} (bf16) / "
+            f"{errs[(f'rope_align:{key}', torch.float32)]:.3g} (f32)")
+        if timed and key == "rope_align":
+            kk = k.float()
+            t = store_times(timer, lambda: ops.rope_align(kk, delta, theta),
+                            lambda: ref.rope_delta_ref(kk, delta, theta),
+                            2 * nbytes(kk) + nbytes(delta),
+                            7 * kk.numel() // 2, torch.float32)
+            say(f"[kernel] rope_align, {tag} shared call, f32: "
+                f"{store_line(t)}")
+            rows.append(dict(
+                name="rope_align", call=f"{tag} shared",
+                shape=list(k.shape), launches=rope_split["shared"],
+                launches_split=rope_split,
+                max_abs_err=errs[(f"rope_align:{key}", k.dtype)],
+                max_abs_err_f32=errs[(f"rope_align:{key}", torch.float32)],
+                **t))
+
+    _, (ks, vs, master, bt), _ = kept["block_diff"]
+    both("block_diff", lambda a, b: ops.block_diff(a, b, master, bt),
+         lambda a, b: ref.block_diff_ref(a, b, master, bt), (ks, vs),
+         twice=True)
+    say(f"[{tag}] block_diff: 2 x {list(ks.shape)}, Master {master}, "
+        f"exact in bf16 and f32, two calls bit-equal")
+    if timed:
+        a, b = ks.float(), vs.float()
+        nb = -(-a.shape[2] // bt)
+        t = store_times(timer, lambda: ops.block_diff(a, b, master, bt),
+                        lambda: ref.block_diff_ref(a, b, master, bt),
+                        nbytes(a, b) + 4 * a.shape[0] * nb,
+                        3 * (a.numel() + b.numel()), torch.float32)
+        say(f"[kernel] block_diff, {tag} call, f32: {store_line(t)}")
+        rows.append(dict(
+            name="block_diff", call=tag, shape=list(ks.shape),
+            launches=launches["block_diff"],
+            max_abs_err=errs[("block_diff", ks.dtype)],
+            max_abs_err_f32=errs[("block_diff", torch.float32)], **t))
+        del a, b
+    return rows
+
+
+def qwen_phase(dev, arch, n_layers=None, timed=True, dense=False):
+    """[<arch>]: serve, hold the path's kernels at its head layout, with
+    ``dense`` serve again through the dense decode loop on the same
+    weights (bit-equal), then free the weights. Returns the kernel-table
+    rows."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServingEngine
+
+    t_phase = time.perf_counter()
+    served = serve_qwen(dev, arch, n_layers)
+    tag = served["cfg"].name
+    rows = hold_kernels(tag, dev, served, timed)
+    if dense:
+        engine = ServingEngine(served["params"], served["cfg"],
+                               paged_decode=False, keep_logits=True)
+        other, dl, drec = serve_phase(f"{tag} dense", engine,
+                                      served["trace"], ops)
+        del engine, drec          # drec keeps clones of the kernels' inputs
+        bit_equal(f"{tag} dense", served["stats"], other,
+                  "the paged decode loop's")
+        assert dl["flash_decode"] > 0 and dl["flash_decode_paged"] == 0, dl
+    before, weights = served["before"], served["weights"]
+    served.clear()
+    del served
+    freed(tag, before, weights)
+    say(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s")
+    return rows
 
 
 # ------------------------------------------------------------- phase 5
@@ -1422,7 +1764,10 @@ def smoke_parity(dev):
 
     for arch, policy in (("qwen2.5-7b", "tokendance"),
                          ("qwen2.5-7b", "prefix"),
-                         ("hymba-1.5b", "tokendance")):
+                         ("hymba-1.5b", "tokendance"),
+                         ("qwen2.5-14b", "tokendance"),
+                         ("qwen3-4b", "tokendance"),
+                         ("qwen2-72b", "tokendance")):
         cfg = get_smoke_config(arch).replace(dtype="float32")
         cpu_params = init_params(cfg, 0, device="cpu")
         gpu_params = to_dev(cpu_params)
@@ -1626,6 +1971,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     smi = card()
     build()
     launches, kept, priv, n_heads, split, rope_split, qwen = main_path(dev)
@@ -1635,15 +1981,22 @@ def main() -> int:
     table += table_rows([prefix(dev, qwen)])
     slo(qwen)
     continuous(qwen)
+    forward_phase(dev, qwen)
+    before = torch.cuda.memory_allocated()
+    weights = nbytes(*tensors(qwen["params"]))
     del qwen
-    gc.collect()        # the engines' reference cycles hold the weights
-    torch.cuda.empty_cache()
+    freed("qwen2.5-7b", before, weights)
+    table += table_rows(qwen_phase(dev, "qwen2.5-14b"))
+    table += table_rows(qwen_phase(dev, "qwen3-4b", timed=False,
+                                   dense=True))
+    table += table_rows(qwen_phase(dev, "qwen2-72b", n_layers=20))
     hlaunches, hkept = hybrid(dev)
     hybrid_prefill(dev, hkept)
     table += table_rows([decode_kernel(dev, hlaunches, hkept,
                                        kept["flash_decode_dense"])])
     smoke_parity(dev)
     table += table_rows(restore(dev))
+    say(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
     say(smi)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

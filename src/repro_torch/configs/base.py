@@ -5,6 +5,11 @@ The registry holds the architectures the port serves: one module per
 architecture under ``repro_torch.configs`` exposing ``CONFIG`` (the
 published configuration) and ``smoke_config()`` (a reduced same-family
 variant for CPU tests).
+
+The fields are JAX's, ``attn_impl`` / ``attn_chunk`` included: they are
+copied so that a config equals its JAX twin field by field, but the port
+has one attention path, the flash kernels of ``repro_torch.kernels``, and
+reads neither.
 """
 from __future__ import annotations
 
@@ -154,9 +159,27 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
 # arch id -> module name under repro_torch.configs
 ARCH_IDS = {
     "qwen2.5-7b": "qwen25_7b",
+    "qwen2.5-14b": "qwen25_14b",
+    "qwen2-72b": "qwen2_72b",
+    "qwen3-4b": "qwen3_4b",
     "hymba-1.5b": "hymba_1_5b",
 }
 

@@ -168,17 +168,21 @@ class KVCollector:
 
     Knobs: ``check_layer`` (deviation-measurement layer),
     ``recompute_ratio`` (fraction of cached positions recomputed),
-    ``block_select`` (>0 selects whole token blocks of that size).
+    ``block_select`` (>0 selects whole token blocks of that size),
+    ``pooled_selection`` (one pooled selected set per group in
+    :meth:`collective_reuse` — beyond the paper, off by default).
     ``align_passes`` counts one unit per RoPE-align + selection pass.
     """
 
     def __init__(self, params: dict, cfg: ModelConfig, *, check_layer: int = 1,
-                 recompute_ratio: float = 0.15, block_select: int = 0):
+                 recompute_ratio: float = 0.15, block_select: int = 0,
+                 pooled_selection: bool = False):
         self.params = params
         self.cfg = cfg
         self.check_layer = min(check_layer, cfg.n_layers - 1)
         self.recompute_ratio = recompute_ratio
         self.block_select = block_select
+        self.pooled_selection = pooled_selection
         self.align_passes = 0
 
     @staticmethod
@@ -232,6 +236,7 @@ class KVCollector:
         res = pic_prefill(
             self.params, self.cfg, tokens, cached_k, cached_v, src_pos,
             shared_mask, n_sel, check_layer=self.check_layer,
+            pooled_selection=self.pooled_selection,
             block_select=self.block_select, **kw)
         dev = torch.where(shared_mask[None], res.deviation, 0.0).sum(
             dim=1).cpu().numpy()

@@ -86,6 +86,61 @@ class MirrorHandle:
         return self.diff.nbytes()
 
 
+def block_diff_mask(
+    master_k: torch.Tensor, master_v: torch.Tensor,     # [L, S, KV, hd]
+    mirror_k: torch.Tensor, mirror_v: torch.Tensor,
+    *,
+    block_tokens: int = BLOCK_TOKENS,
+    tol: float = 0.0,
+) -> torch.Tensor:
+    """Bool ``[n_blocks]`` on the inputs' device: True where any position
+    of the block differs by more than ``tol`` (union over layers and the
+    K/V planes). One ``block_diff`` launch over the pair stacked as a
+    family of two with the Master first, in the widest of the four
+    dtypes (the difference JAX takes is in the promoted type)."""
+    dt = master_k.dtype
+    for t in (master_v, mirror_k, mirror_v):
+        dt = torch.promote_types(dt, t.dtype)
+    ks = torch.stack([master_k.to(dt), mirror_k.to(dt)])
+    vs = torch.stack([master_v.to(dt), mirror_v.to(dt)])
+    return ops.block_diff(ks, vs, 0, block_tokens)[1] > tol
+
+
+def build_mirror(
+    rid: str,
+    master: MasterCache,
+    mirror_k: torch.Tensor,
+    mirror_v: torch.Tensor,
+    new_pos: np.ndarray,
+    *,
+    block_tokens: int = BLOCK_TOKENS,
+    tol: float = 0.0,
+) -> MirrorDiff:
+    """Encode one sibling cache as a block-sparse diff against the Master.
+    The frames must agree (``new_pos`` equal to the Master's positions):
+    JAX raises ``ValueError`` otherwise, and so does this. The diff's
+    value rows are copies, not views of ``mirror_k``/``mirror_v``."""
+    old_pos = np.asarray(master.positions, np.int32)
+    new_pos = np.asarray(new_pos, np.int32)
+    if not np.array_equal(old_pos, new_pos):
+        raise ValueError("build_mirror requires aligned frames (new_pos "
+                         "equal to the Master's positions)")
+    mask = block_diff_mask(master.k, master.v, mirror_k, mirror_v,
+                           block_tokens=block_tokens, tol=tol)
+    idx = np.flatnonzero(mask.cpu().numpy()).astype(np.int32)
+    xk = _pad_to_blocks(mirror_k, block_tokens)
+    xv = _pad_to_blocks(mirror_v, block_tokens)
+    L, Sp, KV, hd = xk.shape
+    nb = Sp // block_tokens
+    sel = torch.as_tensor(idx, dtype=torch.long, device=xk.device)
+    return MirrorDiff(
+        rid=rid, master_rid=master.rid, block_idx=idx,
+        k_vals=xk.reshape(L, nb, block_tokens, KV, hd)[:, sel],
+        v_vals=xv.reshape(L, nb, block_tokens, KV, hd)[:, sel],
+        old_pos=old_pos, new_pos=new_pos,
+        seq_len=int(mirror_k.shape[1]), block_tokens=block_tokens)
+
+
 def build_round_family(
     request_ids: Sequence[str],
     ks: torch.Tensor,          # [N, L, S, KV, hd] recovered caches
@@ -194,6 +249,14 @@ class FamilyPack:
     block_tokens: int
     seq_len: int
 
+    @property
+    def n_mirrors(self) -> int:
+        return len(self.rids)
+
+    def nbytes(self) -> int:
+        data = 2 * _nbytes(self.diff_k)
+        return data + self.diff_slot.nbytes + self.delta_pos.nbytes
+
 
 def pack_family(handles: Sequence[MirrorHandle]) -> FamilyPack:
     """Stack a Master family's mirror diffs into per-family tensors. All
@@ -230,6 +293,27 @@ def pack_family(handles: Sequence[MirrorHandle]) -> FamilyPack:
         diff_k=torch.stack(ks), diff_v=torch.stack(vs),
         diff_slot=slot, delta_pos=dpos.reshape(M, nb, bt),
         nb=nb, block_tokens=bt, seq_len=S)
+
+
+def similarity_master(token_lists: Sequence[np.ndarray]) -> int:
+    """Fallback Master choice when no reuse plan exists (paper §5): the
+    entry with the highest summed pairwise token overlap (Jaccard over
+    the token sets); ties go to the first, as ``np.argmax`` gives them."""
+    n = len(token_lists)
+    if n == 1:
+        return 0
+    sets = [set(map(int, t)) for t in token_lists]
+    scores = []
+    for i in range(n):
+        s = 0.0
+        for j in range(n):
+            if i == j:
+                continue
+            inter = len(sets[i] & sets[j])
+            union = len(sets[i] | sets[j]) or 1
+            s += inter / union
+        scores.append(s)
+    return int(np.argmax(scores))
 
 
 def compression_stats(master: MasterCache,

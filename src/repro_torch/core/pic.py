@@ -183,12 +183,17 @@ def pic_prefill(
     priv_mask: Optional[torch.Tensor] = None,  # [S] bool
     priv_hist: Optional[PagedHistory] = None,  # paged dual of priv_k/priv_v
     check_layer: int = 1,
+    pooled_selection: bool = False,
     block_select: int = 0,
 ) -> PICResult:
     """CacheBlend-style recovery for a group of requests (module doc).
     Selection is per request, computed in one batched pass.
     ``block_select`` > 0 selects whole token blocks (EPIC-style), so
-    Mirror diffs stay block-sparse; otherwise single tokens."""
+    Mirror diffs stay block-sparse; otherwise single tokens.
+    ``pooled_selection`` (beyond the paper, off by default) selects ONE
+    set for the whole group from the mean of the requests' scores, which
+    aligns every mirror's diff blocks with the master's at the cost of
+    per-request PIC equivalence."""
     assert priv_k is None or priv_hist is None, \
         "pass dense priv_k/priv_v OR a PagedHistory, not both"
     B, S = tokens.shape
@@ -238,6 +243,8 @@ def pic_prefill(
     deviation = torch.where(is_cached[None], deviation, 0.0)
     scores = torch.where(is_cached[None], deviation, BIG)     # fresh always win
     scores[:, S - 1] += 2 * BIG                               # last token always
+    if pooled_selection:
+        scores = scores.mean(dim=0, keepdim=True).expand(B, S)
     if block_select:
         sel_idx = _select_blocks(scores, n_sel, block_select)
     else:
@@ -272,6 +279,12 @@ def pic_prefill(
     logits = logits_of(params, cfg, h_last)[:, 0]
     return PICResult(torch.stack(rec_ks), torch.stack(rec_vs), deviation,
                      sel_idx, logits, h_sel)
+
+
+def n_sel_for(layout_fresh: int, n_cached: int, ratio: float) -> int:
+    """Selected-set size for token selection: every fresh position plus
+    ``ratio`` of the cached ones (at least one)."""
+    return layout_fresh + max(1, int(math.ceil(ratio * n_cached)))
 
 
 def n_sel_for_blocks(fresh_mask, bt: int, ratio: float) -> int:

@@ -6,8 +6,8 @@ function (activations ``[B, S, ...]``, heads ``[B, S, H, hd]``). All
 attention goes through :func:`attention`, which launches the port's
 flash-attention kernel on a CUDA tensor (``kernels.ops``). The features
 of the served configurations are ported — dense attention with sliding
-windows, and SSM / hybrid layers (``models.ssm``); :func:`check_supported`
-raises for the rest.
+windows and per-head q/k RMSNorm (``qk_norm``), and SSM / hybrid layers
+(``models.ssm``); :func:`check_supported` raises for the rest.
 """
 from __future__ import annotations
 
@@ -20,12 +20,11 @@ from repro_torch.kernels.ref import rope_freqs
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for architecture features the port
-    does not implement yet (MoE, logit softcap, qk-norm, tied embeddings,
-    non-text frontends)."""
+    does not implement yet (MoE, logit softcap, tied embeddings, non-text
+    frontends)."""
     missing = [name for name, on in (
         ("MoE", cfg.is_moe),
         ("logit softcap", bool(cfg.attn_logit_softcap)),
-        ("qk_norm", cfg.qk_norm),
         ("tied embeddings", cfg.tie_embeddings),
         ("frontend", cfg.frontend != "none"),
     ) if on]
@@ -91,8 +90,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def project_qkv(x: torch.Tensor, p: dict, cfg):
-    """q ``[B, S, H, hd]`` and k/v ``[B, S, KV, hd]`` (bias added, no
-    RoPE)."""
+    """q ``[B, S, H, hd]`` and k/v ``[B, S, KV, hd]``: bias added, then
+    with ``cfg.qk_norm`` each head of q and k RMS-normed (``q_norm`` /
+    ``k_norm`` ``[hd]``), as JAX does it at every attention site; no
+    RoPE. Every attention of the port projects here, so cached keys are
+    stored normed."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
 
@@ -100,7 +102,11 @@ def project_qkv(x: torch.Tensor, p: dict, cfg):
         y = matmul(x, p[w]).view(B, S, nh, hd)
         return y + p[b].view(nh, hd) if b in p else y
 
-    return proj("wq", "bq", H), proj("wk", "bk", KV), proj("wv", "bv", KV)
+    q, k = proj("wq", "bq", H), proj("wk", "bk", KV)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.rmsnorm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.rmsnorm_eps)
+    return q, k, proj("wv", "bv", KV)
 
 
 def out_proj(o: torch.Tensor, p: dict) -> torch.Tensor:

@@ -9,6 +9,7 @@ Python loop in eager mode. Public API:
 
   init_params(cfg, seed, device=None)       -> params (random, seeded)
   from_jax(params_np, cfg, device=None)     -> params (the JAX weights)
+  forward(params, cfg, tokens, ...)         -> logits, aux (scoring)
   prefill(params, cfg, tokens, ...)         -> logits, cache
   make_empty_cache(cfg, batch, max_len, ...) -> cache
   extend(params, cfg, tokens, cache)        -> logits, cache (chunked prefill)
@@ -16,6 +17,8 @@ Python loop in eager mode. Public API:
   decode_step_paged(params, cfg, token, cache) -> logits, cache (pages)
 
 ``device=None`` means the CUDA device, and raises when there is none.
+``long_context=True`` (every entry point that attends) gives every layer
+the config's ``long_context_window``, as JAX's ``_windows`` does.
 """
 from __future__ import annotations
 
@@ -97,6 +100,8 @@ def init_params(cfg: ModelConfig, seed: int, device=None) -> dict:
         if cfg.attn_bias:
             attn.update(bq=zeros((L, H * hd)), bk=zeros((L, KV * hd)),
                         bv=zeros((L, KV * hd)))
+        if cfg.qk_norm:
+            attn.update(q_norm=zeros((L, hd)), k_norm=zeros((L, hd)))
         blocks["attn"] = attn
     if cfg.has_ssm:
         di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
@@ -135,8 +140,9 @@ def _to_torch(x, device) -> torch.Tensor:
 
 def from_jax(params_np: dict, cfg: ModelConfig, device=None) -> dict:
     """The JAX ``init_params`` pytree (leaves as numpy arrays) as the
-    port's parameters — same nesting, layer-stacked leaves unchanged, each
-    in its own dtype (the SSM's ``dt_bias``/``A_log`` stay f32)."""
+    port's parameters — same nesting, every leaf (``q_norm``/``k_norm``
+    included), layer-stacked leaves unchanged, each in its own dtype (the
+    SSM's ``dt_bias``/``A_log`` stay f32)."""
     check_supported(cfg)
     dev = resolve_device(device)
 
@@ -148,21 +154,29 @@ def from_jax(params_np: dict, cfg: ModelConfig, device=None) -> dict:
     return conv(params_np)
 
 
+def _pick(tree, l: int):
+    if isinstance(tree, dict):
+        return {k: _pick(v, l) for k, v in tree.items()}
+    return tree[l]
+
+
 def layer(params: dict, l: int) -> dict:
     """Layer ``l``'s parameters (views into the stacked leaves)."""
-    def pick(tree):
-        if isinstance(tree, dict):
-            return {k: pick(v) for k, v in tree.items()}
-        return tree[l]
-    return pick(params["blocks"])
+    # a module-level walk: a recursive closure here would make a reference
+    # cycle (function <-> cell) on every call, garbage for the collector
+    return _pick(params["blocks"], l)
 
 
 # --------------------------------------------------------------------------
 # forward pieces
 # --------------------------------------------------------------------------
-def _windows(cfg: ModelConfig, max_len: int):
+def _windows(cfg: ModelConfig, max_len: int, long_context: bool = False):
     """Per-layer attention window for a cache of ``max_len`` rows (a
-    window of ``max_len`` or more is full causal attention)."""
+    window of ``max_len`` or more is full causal attention);
+    ``long_context`` gives every layer ``cfg.long_context_window`` where
+    the config has one."""
+    if long_context and cfg.long_context_window:
+        return [min(cfg.long_context_window, max_len)] * cfg.n_layers
     return list(cfg.layer_window_sizes(max_len)) or [max_len] * cfg.n_layers
 
 
@@ -208,8 +222,69 @@ def logits_of(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return (h @ params["lm_head"].to(h.dtype)).float()
 
 
+def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+           frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token embeddings ``[B, S, D]`` in the model dtype; ``frontend_embeds``
+    ``[B, Sf, D]`` replaces the first Sf positions (JAX's ``_embed``)."""
+    h = params["embed"][tokens].to(dtype_of(cfg))
+    if frontend_embeds is not None:
+        sf = frontend_embeds.shape[1]
+        h = torch.cat([frontend_embeds.to(h.dtype), h[:, sf:]], dim=1)
+    return h
+
+
+def _run_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+              windows, frontend_embeds, keep: bool):
+    """Every layer over the whole sequence (``block_full``): the final
+    hidden state ``[B, S, D]`` (before the final norm) and, with ``keep``,
+    each layer's cache outputs. The one layer loop of :func:`forward` and
+    :func:`prefill`, so the two give the same bits."""
+    B, S = tokens.shape
+    h = _embed(params, cfg, tokens, frontend_embeds)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device).expand(B, S).contiguous()
+    cos = sin = None
+    if cfg.has_attention:
+        cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim,
+                                cfg.rope_theta)
+    per_layer = []
+    for l in range(cfg.n_layers):
+        h, outs = block_full(h, layer(params, l), cfg, window=windows[l],
+                             positions=positions, cos=cos, sin=sin)
+        if keep:
+            per_layer.append(outs)
+    return h, per_layer
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            frontend_embeds: Optional[torch.Tensor] = None,
+            long_context: bool = False, return_hidden: bool = False):
+    """Training / scoring pass over ``tokens`` ``[B, S]``: (logits f32
+    ``[B, S, V]``, aux), or with ``return_hidden`` (the hidden state
+    ``[B, S, D]`` before the final norm, aux). ``aux`` is the MoE load
+    loss JAX sums over layers: a 0-d f32 zero, as the port has no MoE.
+
+    Windows are the layers' at S (JAX's). The layer loop is
+    :func:`prefill`'s, so on the same weights and tokens the logits equal
+    ``prefill(..., max_len=S)``'s bit for bit. JAX's ``shard`` (waits for
+    the port of ``launch/``), ``remat`` (for ``training/``, where it
+    becomes ``torch.utils.checkpoint``) and ``unroll`` (a ``lax.scan``
+    knob; eager layers need none) are not accepted.
+    """
+    check_supported(cfg)
+    S = tokens.shape[1]
+    h, _ = _run_full(params, cfg, tokens, _windows(cfg, S, long_context),
+                     frontend_embeds, keep=False)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    if return_hidden:
+        return h, aux
+    return logits_of(params, cfg, h), aux
+
+
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-            max_len: Optional[int] = None, logits_last_only: bool = False):
+            max_len: Optional[int] = None,
+            frontend_embeds: Optional[torch.Tensor] = None,
+            long_context: bool = False, logits_last_only: bool = False):
     """Run the prompt ``[B, S]``; returns (logits, cache) with cache
     ``{"length": [B], "k"/"v": [L, B, max_len, KV, hd]}`` (zero past S)
     for attention, plus ``"ssm"`` ``[L, B, nh, hp, n]`` (f32) and
@@ -220,19 +295,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     check_supported(cfg)
     B, S = tokens.shape
     max_len = max_len or S
-    h = params["embed"][tokens].to(dtype_of(cfg))
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device).expand(B, S).contiguous()
-    cos = sin = None
-    if cfg.has_attention:
-        cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim,
-                                cfg.rope_theta)
-    windows = _windows(cfg, max_len)
-    per_layer = []
-    for l in range(cfg.n_layers):
-        h, outs = block_full(h, layer(params, l), cfg, window=windows[l],
-                             positions=positions, cos=cos, sin=sin)
-        per_layer.append(outs)
+    h, per_layer = _run_full(params, cfg, tokens,
+                             _windows(cfg, max_len, long_context),
+                             frontend_embeds, keep=True)
     logits = logits_of(params, cfg, h[:, -1:] if logits_last_only else h)
     cache = {"length": torch.full((B,), S, dtype=torch.int32,
                                   device=tokens.device)}
@@ -270,7 +335,7 @@ def make_empty_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 
 
 def extend(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-           cache: dict):
+           cache: dict, *, long_context: bool = False):
     """Extend a dense cache by T known tokens in one pass (chunked
     prefill: the prefix-cache policy's suffix compute).
 
@@ -296,7 +361,7 @@ def extend(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         T, dtype=torch.int32, device=tokens.device)
     cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
     kc, vc = cache["k"], cache["v"]
-    windows = _windows(cfg, kc.shape[2])
+    windows = _windows(cfg, kc.shape[2], long_context)
     rows = torch.arange(B, device=tokens.device)[:, None]
     at = positions.long()
     kv_len = length + T
@@ -319,7 +384,7 @@ def extend(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                cache: dict):
+                cache: dict, *, long_context: bool = False):
     """One greedy-decode step over a dense cache (the engine's dense loop:
     every SSM or hybrid model, and the oracle of the paged loop).
 
@@ -344,7 +409,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         cos, sin = rope_cos_sin(length[:, None], cfg.resolved_head_dim,
                                 cfg.rope_theta)
         kc, vc = cache["k"], cache["v"]
-        windows = _windows(cfg, kc.shape[2])
+        windows = _windows(cfg, kc.shape[2], long_context)
         rows = torch.arange(B, device=token.device)
         at = length.long()
         kv_len = length + 1
@@ -385,7 +450,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
 
 
 def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                      cache: dict):
+                      cache: dict, *, long_context: bool = False):
     """One greedy-decode step whose KV lives in page pools.
 
     ``cache``: ``pk``/``pv`` ``[L, P, bt, KV, hd]``, ``page_idx`` int32
@@ -397,15 +462,17 @@ def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
     ``page_idx[b, length // bt]`` at slot ``length % bt``, IN PLACE in the
     pools (the decode state owns them); attention then reads the first
     ``length + 1`` tokens of each sequence's pages through the paged
-    decode kernel, which has no window. Returns (logits ``[B, V]``, cache
-    with ``length + 1``).
+    decode kernel, which has no window: a window that binds at the pages'
+    length (the layers' own, or ``long_context``'s) raises
+    ``NotImplementedError``. Returns (logits ``[B, V]``, cache with
+    ``length + 1``).
     """
     check_supported(cfg)
     if cfg.has_ssm or not cfg.has_attention:
         raise ValueError("paged decode carries attention KV only; use "
                          "decode_step for SSM state")
     max_len = cache["page_idx"].shape[1] * cache["pk"].shape[2]
-    if min(_windows(cfg, max_len)) < max_len:
+    if min(_windows(cfg, max_len, long_context)) < max_len:
         raise NotImplementedError(
             f"{cfg.name}: a sliding window binds at {max_len} rows and the "
             f"paged decode kernel has no window; use decode_step")

@@ -118,6 +118,13 @@ class ServingEngine:
             # the JAX package raises ZeroDivisionError at round 1's plan
             raise ValueError(f"the {policy.name} policy selects KV blocks; "
                              f"it needs block_select > 0")
+        if policy.requires_attention_cache and (not cfg.has_attention
+                                                or cfg.has_ssm):
+            # the JAX package constructs and fails at round 1 (extend
+            # asserts an attention-only cache); refuse before any work
+            raise ValueError(f"the {policy.name} policy extends a cached "
+                             f"attention prefix; {cfg.name} carries SSM "
+                             f"state")
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
@@ -468,6 +475,12 @@ class ServingEngine:
             else:
                 host += e.n_pages * pb
         return dev, host, cache
+
+    def _persistent_bytes(self) -> int:
+        """Persistent bytes on the device and the host tier together (the
+        restore cache excluded), as ``RoundStats.persistent_bytes``."""
+        dev, host, _ = self._persistent_split()
+        return dev + host
 
     # ------------------------------------------------------------------
     def serve(self, trace: AllGatherTrace, planner=None,

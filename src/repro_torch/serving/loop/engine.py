@@ -36,6 +36,7 @@ capacity; the per-committee sub-batches keep the oracle exact.
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -161,9 +162,12 @@ class ContinuousEngine:
             token_ticks=token_ticks, makespan_steps=0,
             sync_makespan_steps=0, overlap_steps=0,
             restore_overlap_events=0)
+        # the scheduler calls back through a weak proxy: a strong
+        # reference would make engine <-> scheduler a cycle that keeps the
+        # weights alive after ``del`` until the collector runs
         self.scheduler = StepScheduler(
-            self, n_c, len(self._rounds), slots_per_step=slots,
-            arrivals=stagger)
+            weakref.proxy(self), n_c, len(self._rounds),
+            slots_per_step=slots, arrivals=stagger)
         makespan = self.scheduler.run()
         res = self._result
         res.makespan_steps = makespan

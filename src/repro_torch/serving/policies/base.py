@@ -139,6 +139,9 @@ class ReusePolicy(ABC):
     requires_attention: bool = False
     #: plans in whole KV blocks: the engine refuses ``block_select=0``
     requires_blocks: bool = False
+    #: extends a cached attention prefix and has no recompute fallback:
+    #: the engine refuses an SSM or hybrid model at construction
+    requires_attention_cache: bool = False
 
     def __init__(self) -> None:
         self.rt: Optional[PolicyRuntime] = None

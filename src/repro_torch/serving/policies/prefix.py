@@ -38,7 +38,11 @@ class PrefixCachePolicy(ReusePolicy):
     member still has cached; ``recover`` pads the stacked prefix caches
     to the prompt length and extends over the suffix (the prefill kernel
     with queries at the suffix positions); ``store`` keeps each agent's
-    full dense cache for the next round, in storage of its own."""
+    full dense cache for the next round, in storage of its own. An SSM or
+    hybrid model is refused (``requires_attention_cache``): ``extend``
+    carries attention KV only."""
+
+    requires_attention_cache = True
 
     def plan(self, ctx: RoundContext) -> RecoveryPlan:
         if ctx.round_idx == 0:

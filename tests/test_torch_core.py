@@ -220,3 +220,162 @@ def test_block_selection_breaks_ties_like_jax_top_k(n_sel):
     want = np.sort((np.asarray(bidx)[:, :, None] * BT
                     + np.arange(BT)).reshape(2, n_sel), axis=-1)
     np.testing.assert_array_equal(ours, want)
+
+
+# ------------------------------------- pieces the engine path leaves out
+@pytest.mark.parametrize("fresh,cached,ratio", [
+    (0, 100, 0.15), (40, 0, 0.3), (17, 333, 0.1), (5, 7, 1.0)])
+def test_n_sel_for_matches_jax(fresh, cached, ratio):
+    assert tpic.n_sel_for(fresh, cached, ratio) == \
+        jpic.n_sel_for(fresh, cached, ratio)
+
+
+def _dense_priv(x):
+    """The paged private histories of ``pic_case`` as dense per-request
+    caches (``_densify_paged``, the oracle both packages pin)."""
+    pk, pv = tcol._densify_paged(
+        *(torch.from_numpy(x[k]) for k in ("pool_k", "pool_v", "page_idx",
+                                           "tail_k", "tail_v")),
+        S=S, start=0, span_len=SPAN)
+    return pk.numpy(), pv.numpy(), x["src"], x["priv_mask"]
+
+
+@pytest.mark.parametrize("block_select", [0, BT])
+def test_pooled_selection_matches_jax(pic_case, block_select):
+    """One pooled selected set for the whole group (the mean of the
+    requests' scores): every row of ``sel_idx`` the same, and the same as
+    JAX's, with recovery and logits within the f32 tolerance."""
+    cfg, params, tcfg, tparams, x = pic_case
+    fresh = ~(x["shared_mask"] | x["priv_mask"])
+    n_sel = (x["n_sel"] if block_select else
+             tpic.n_sel_for(int(fresh.sum()), int((~fresh).sum()), 0.3))
+    pk, pv, psrc, pmask = _dense_priv(x)
+    args = [x[k] for k in ("tokens", "shared_k", "shared_v", "shared_src",
+                           "shared_mask")]
+    kw = dict(priv_k=pk, priv_v=pv, priv_src=psrc, priv_mask=pmask)
+    common = dict(check_layer=1, pooled_selection=True,
+                  block_select=block_select)
+    jr = jpic.pic_prefill(params, cfg, *map(jnp.asarray, args), n_sel,
+                          **{k: jnp.asarray(v) for k, v in kw.items()},
+                          **common)
+    tr = tpic.pic_prefill(tparams, tcfg, *map(torch.from_numpy, args), n_sel,
+                          **{k: torch.from_numpy(v) for k, v in kw.items()},
+                          **common)
+    sel = tr.sel_idx.numpy()
+    np.testing.assert_array_equal(sel, np.asarray(jr.sel_idx))
+    assert (sel == sel[0]).all()
+    for f in ("recovered_k", "recovered_v", "logits"):
+        np.testing.assert_allclose(getattr(tr, f).numpy(),
+                                   np.asarray(getattr(jr, f)), atol=1e-4,
+                                   rtol=0, err_msg=f)
+    # per-request selection differs on these inputs: the option is live
+    own = tpic.pic_prefill(tparams, tcfg, *map(torch.from_numpy, args),
+                           n_sel, **{k: torch.from_numpy(v)
+                                     for k, v in kw.items()},
+                           check_layer=1, block_select=block_select)
+    assert not (own.sel_idx.numpy() == own.sel_idx.numpy()[0]).all()
+
+
+def test_collector_pooled_selection_matches_jax(pic_case):
+    """``KVCollector(pooled_selection=True)``: the collective pass pools,
+    the per-request baseline does not, in both packages."""
+    cfg, params, tcfg, tparams, x = pic_case
+    pk, pv, psrc, pmask = _dense_priv(x)
+    ids = [f"a{i}" for i in range(B)]
+    args = [x[k] for k in ("tokens", "shared_k", "shared_v", "shared_src",
+                           "shared_mask")]
+    jc = jcol.KVCollector(params, cfg, block_select=BT,
+                          pooled_selection=True)
+    tc = tcol.KVCollector(tparams, tcfg, block_select=BT,
+                          pooled_selection=True)
+    jres = jc.collective_reuse(ids, *map(jnp.asarray, args), x["n_sel"],
+                               priv=tuple(map(jnp.asarray,
+                                              (pk, pv, psrc, pmask))))
+    tres = tc.collective_reuse(ids, *map(torch.from_numpy, args), x["n_sel"],
+                               priv=tuple(map(torch.from_numpy,
+                                              (pk, pv, psrc, pmask))))
+    np.testing.assert_array_equal(tres.plan.sel_idx_all,
+                                  jres.plan.sel_idx_all)
+    assert tres.plan.master == jres.plan.master
+    assert (tres.plan.sel_idx_all == tres.plan.sel_idx_all[0]).all()
+    np.testing.assert_allclose(tres.pic.logits.numpy(),
+                               np.asarray(jres.pic.logits), atol=1e-4, rtol=0)
+    jser = jc.serial_reuse(ids, *map(jnp.asarray, args), x["n_sel"],
+                           priv=tuple(map(jnp.asarray, (pk, pv, psrc, pmask))))
+    tser = tc.serial_reuse(ids, *map(torch.from_numpy, args), x["n_sel"],
+                           priv=tuple(map(torch.from_numpy,
+                                          (pk, pv, psrc, pmask))))
+    for j, t in zip(jser, tser):
+        np.testing.assert_array_equal(t.sel_idx.numpy(), np.asarray(j.sel_idx))
+    assert tc.align_passes == jc.align_passes == 1 + B
+
+
+@pytest.mark.parametrize("S_", [160, 150])
+@pytest.mark.parametrize("tol", [0.0, 1.5])
+def test_block_diff_mask_matches_jax(S_, tol):
+    ks, vs = _family_kv(S=S_)
+    for n in range(1, ks.shape[0]):
+        want = np.asarray(jds.block_diff_mask(
+            *(jnp.asarray(a) for a in (ks[0], vs[0], ks[n], vs[n])), tol=tol))
+        got = tds.block_diff_mask(
+            *(torch.from_numpy(a) for a in (ks[0], vs[0], ks[n], vs[n])),
+            tol=tol)
+        assert got.dtype == torch.bool
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any() and (tol or not want.all())
+
+
+def test_build_mirror_matches_jax():
+    ks, vs = _family_kv(S=150)
+    pos = np.arange(150, dtype=np.int32)
+    jm = jds.MasterCache("a0", jnp.asarray(ks[0]), jnp.asarray(vs[0]), pos)
+    tm = tds.MasterCache("a0", torch.from_numpy(ks[0]),
+                         torch.from_numpy(vs[0]), pos)
+    for n in range(1, ks.shape[0]):
+        jd = jds.build_mirror(f"a{n}", jm, jnp.asarray(ks[n]),
+                              jnp.asarray(vs[n]), pos)
+        td = tds.build_mirror(f"a{n}", tm, torch.from_numpy(ks[n]),
+                              torch.from_numpy(vs[n]), pos)
+        np.testing.assert_array_equal(td.block_idx, jd.block_idx)
+        np.testing.assert_array_equal(td.k_vals.numpy(),
+                                      np.asarray(jd.k_vals))
+        np.testing.assert_array_equal(td.v_vals.numpy(),
+                                      np.asarray(jd.v_vals))
+        assert (td.seq_len, td.nbytes(), td.master_rid) == \
+            (jd.seq_len, jd.nbytes(), jd.master_rid)
+    # the diff of the mirror against itself as Master is empty
+    same = tds.build_mirror("a0", tm, tm.k, tm.v, pos)
+    assert same.n_blocks == 0
+    with pytest.raises(ValueError, match="aligned frames"):
+        jds.build_mirror("a1", jm, jnp.asarray(ks[1]), jnp.asarray(vs[1]),
+                         pos + 1)
+    with pytest.raises(ValueError, match="aligned frames"):
+        tds.build_mirror("a1", tm, torch.from_numpy(ks[1]),
+                         torch.from_numpy(vs[1]), pos + 1)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_similarity_master_matches_jax(seed):
+    r = np.random.default_rng(seed)
+    base = r.integers(0, 50, 40)
+    lists = [np.concatenate([base[: 10 + 7 * i], r.integers(0, 50, 9)])
+             for i in range(5)]
+    assert tds.similarity_master(lists) == jds.similarity_master(lists)
+    # ties go to the first entry, one entry is its own master
+    same = [base, base.copy(), base.copy()]
+    assert tds.similarity_master(same) == jds.similarity_master(same) == 0
+    assert tds.similarity_master([base]) == jds.similarity_master([base]) == 0
+
+
+def test_family_pack_counts_match_jax():
+    ks, vs = _family_kv()
+    aids = [f"a{i}" for i in range(ks.shape[0])]
+    pos = np.arange(ks.shape[2])
+    _, jh = jds.build_round_family(aids, jnp.asarray(ks), jnp.asarray(vs),
+                                   pos, 1)
+    _, th = tds.build_round_family(aids, torch.from_numpy(ks),
+                                   torch.from_numpy(vs), pos, 1)
+    jp, tp = jds.pack_family(jh), tds.pack_family(th)
+    assert tp.n_mirrors == jp.n_mirrors == len(aids) - 1
+    assert tp.nbytes() == jp.nbytes()
+    np.testing.assert_array_equal(tp.diff_slot, jp.diff_slot)

@@ -1092,3 +1092,92 @@ def test_incremental_restore_reproduces_bench_artifact():
         for k in row:
             if (row["round"], k) not in departs:
                 assert row[k] == rec[k], (row, rec)
+
+
+# ------------------------------------------- the Qwen family's head layouts
+# (H, KV, hd) of Qwen2.5-14B (G 5), Qwen3-4B (G 4) and Qwen2-72B (G 8, the
+# decode kernels' largest group), all at head dim 128
+QWEN_LAYOUTS = [(40, 8, 128), (32, 8, 128), (64, 8, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_DTYPES)
+@pytest.mark.parametrize("H,KV,hd", QWEN_LAYOUTS)
+def test_gpu_attention_kernels_at_qwen_head_layouts(cuda, dtype, H, KV, hd):
+    """The four attention kernels at the serving paths' new layouts, each
+    against its plain version at the card's tolerance and twice for the
+    same bits: ``flash_attention`` causal (S 150) and at selected query
+    positions with a ragged ``kv_len``; ``flash_prefill_paged`` over 5
+    pages of 32 (half aliased) and a 32-row tail, bit-equal to the dense
+    kernel on the gathered rows; ``flash_decode_paged`` over 18 pages of
+    32 with ragged spans, and ``flash_decode`` on the same rows bit-equal
+    to it, with and without a binding window."""
+    g = torch.Generator(device=cuda).manual_seed(H + KV)
+    B, S = 2, 150
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+
+    def twice(fn, what):
+        got = fn()
+        assert torch.equal(fn(), got), f"{what}: two calls differ"
+        return got
+
+    q, k, v = rnd(B, S, H, hd), rnd(B, S, KV, hd), rnd(B, S, KV, hd)
+    full = torch.arange(S, device=cuda, dtype=torch.int32).expand(
+        B, S).contiguous()
+    sel = torch.sort(torch.randperm(S, generator=g, device=cuda)[:64]
+                     ).values.to(torch.int32).expand(B, 64).contiguous()
+    kv_len = torch.tensor([S, 100], device=cuda, dtype=torch.int32)
+    for qq, qp, kl, what in ((q, full, None, "fresh"),
+                             (q[:, :64].contiguous(), sel, kv_len,
+                              "selected")):
+        got = twice(lambda: ops.flash_attention(qq, k, v, q_pos=qp, window=S,
+                                                kv_len=kl), what)
+        _held(got, ref.flash_attention_ref(qq, k, v, q_pos=qp, window=S,
+                                           kv_len=kl), dtype,
+              f"flash_prefill {what} {H}/{KV}")
+
+    nbh, bt, T = 5, 32, 32
+    P = B * nbh + 3
+    pk, pv = rnd(P, bt, KV, hd), rnd(P, bt, KV, hd)
+    pidx = torch.randperm(P, generator=g, device=cuda)[: B * nbh].reshape(
+        B, nbh).to(torch.int32)
+    pidx[1, : nbh // 2] = pidx[0, : nbh // 2]
+    tk, tv = rnd(B, T, KV, hd), rnd(B, T, KV, hd)
+    span = nbh * bt
+    qp_ = rnd(B, span + T, H, hd)
+    got = twice(lambda: ops.flash_prefill_paged(qp_, pk, pv, pidx, tk, tv,
+                                                span_len=span),
+                "flash_prefill_paged")
+    kd, vd = ref.paged_kv_ref(pk, pv, pidx, tk, tv, span)
+    pos = torch.arange(span + T, device=cuda, dtype=torch.int32).expand(
+        B, span + T).contiguous()
+    assert torch.equal(got, ops.flash_attention(
+        qp_, kd.contiguous(), vd.contiguous(), q_pos=pos,
+        window=2 ** 31 - 1)), "paged prefill != dense kernel"
+    _held(got, ref.flash_attention_paged_ref(qp_, pk, pv, pidx, tk, tv,
+                                             span_len=span), dtype,
+          f"flash_prefill_paged {H}/{KV}")
+
+    nbt = 18
+    qd = rnd(B, H, hd)
+    kk, vv = rnd(B, nbt * bt, KV, hd), rnd(B, nbt * bt, KV, hd)
+    perm = torch.randperm(B * nbt, generator=g, device=cuda)
+    dpk = torch.empty(B * nbt, bt, KV, hd, device=cuda, dtype=dtype)
+    dpv = torch.empty_like(dpk)
+    dpk[perm] = kk.reshape(B * nbt, bt, KV, hd)
+    dpv[perm] = vv.reshape(B * nbt, bt, KV, hd)
+    didx = perm.reshape(B, nbt).to(torch.int32).contiguous()
+    lens = torch.tensor([545, 33], device=cuda, dtype=torch.int32)
+    paged = twice(lambda: ops.flash_decode_paged(qd, dpk, dpv, didx, lens),
+                  "flash_decode_paged")
+    _held(paged, ref.flash_decode_paged_ref(qd, dpk, dpv, didx, lens), dtype,
+          f"flash_decode_paged {H}/{KV}")
+    dense = twice(lambda: ops.flash_decode(qd, kk, vv, lens, nbt * bt),
+                  "flash_decode")
+    assert torch.equal(dense, paged), "dense decode != paged decode"
+    win = twice(lambda: ops.flash_decode(qd, kk, vv, lens, 100),
+                "flash_decode window")
+    _held(win, ref.flash_decode_ref(qd, kk, vv, lens, 100), dtype,
+          f"flash_decode window {H}/{KV}")

@@ -383,3 +383,131 @@ def test_serve_asks_the_planner_as_jax_does(positional):
         ("plan", 0), ("plan", 1), ("observe", 0), ("plan", 2)]
     assert ts[1].admission["deferred"] == [tp.calls[0][2][-1]]
     _assert_rounds_equal(ts, js)
+
+
+# ------------------------------------------------ persistent footprint
+def test_persistent_bytes_equal_jax_and_survive_spill(served):
+    """``_persistent_bytes`` as JAX's after the same trace; spilling a
+    persistent store owner moves its bytes to the host tier and keeps the
+    sum (the counterpart of ``test_persistent_bytes_survive_spill``)."""
+    from repro_torch.serving.pool import parse_owner
+
+    jeng, js, teng, ts = served
+    total = teng._persistent_bytes()
+    assert total == jeng._persistent_bytes() == ts[-1].persistent_bytes
+    dev0, host0, cache0 = teng._persistent_split()
+    assert total == dev0 + host0 and dev0 > 0
+    victim = next(o for o in teng.manager._spillables
+                  if o in teng.pool._allocs
+                  and teng.pool._allocs[o].persistent
+                  and parse_owner(o).kind != "histpool")
+    n_pages = teng.pool._allocs[victim].n_pages
+    assert teng.manager.spill(victim)
+    dev1, host1, cache1 = teng._persistent_split()
+    assert teng._persistent_bytes() == total
+    assert host1 == host0 + n_pages * teng.pool.page_bytes()
+    assert dev1 == dev0 - n_pages * teng.pool.page_bytes()
+    assert cache1 == cache0
+    teng.manager.ensure_resident(victim)      # reload: as before
+    assert teng._persistent_split() == (dev0, host0, cache0)
+
+
+# ------------------------------------------- the prefix policy on Hymba
+# The inputs that show the fault: smoke hymba-1.5b in f32, agent_society,
+# 3 agents, 2 rounds, seed 11, gen 32, ratio 0.1.
+def _hymba_prefix_inputs():
+    cfg = get_smoke_config("hymba-1.5b").replace(dtype="float32")
+    trace = generate_trace("agent_society", 3, 2, cfg.vocab_size, seed=11,
+                           jitter_hist=False)
+    return cfg, trace
+
+
+def test_jax_prefix_engine_on_hybrid_fails_at_round_1():
+    """A fault of the reference, pinned as it is: the JAX engine keeps the
+    prefix policy for Hymba (``requires_attention`` is False), round 0
+    recomputes and stores dense sessions, and round 1's ``extend``
+    asserts an attention-only cache."""
+    cfg, trace = _hymba_prefix_inputs()
+    params = jax_init(jax.random.PRNGKey(0), cfg)
+    eng = ServingEngine(params, cfg, "prefix", gen_len=GEN,
+                        recompute_ratio=0.1)
+    assert eng.policy.name == "prefix"
+    eng.init_agents(trace)
+    st = eng.run_round(trace.rounds[0])
+    assert st.outputs.shape == (3, GEN)
+    with pytest.raises(AssertionError, match="extend"):
+        eng.run_round(trace.rounds[1])
+
+
+def test_port_prefix_engine_refuses_hybrid_at_construction():
+    """A deliberate departure: the port refuses the prefix policy on an
+    SSM or hybrid model before any work (``requires_attention_cache``),
+    through every engine front door; the recompute fallback of the
+    PIC-style policies is unchanged."""
+    from repro_torch.configs import get_smoke_config as smoke
+    from repro_torch.serving import (ContinuousEngine, MultiAgentEngine,
+                                     PrefixCachePolicy, get_policy)
+
+    tcfg = smoke("hymba-1.5b").replace(dtype="float32")
+    tparams = init_params(tcfg, 0, device="cpu")
+    assert PrefixCachePolicy.requires_attention_cache
+    assert not any(get_policy(m).requires_attention_cache
+                   for m in ("recompute", "pic", "tokendance"))
+    for make in (lambda: TorchEngine(tparams, tcfg, "prefix"),
+                 lambda: TorchEngine(tparams, tcfg, PrefixCachePolicy()),
+                 lambda: ContinuousEngine(tparams, tcfg, "prefix")):
+        with pytest.raises(ValueError, match="SSM state"):
+            make()
+    with pytest.warns(DeprecationWarning), \
+            pytest.raises(ValueError, match="SSM state"):
+        MultiAgentEngine(tparams, tcfg, "prefix")
+    assert TorchEngine(tparams, tcfg, "tokendance").policy.name == \
+        "recompute"
+    # an attention-only model keeps the policy
+    qcfg = smoke("qwen3-4b").replace(dtype="float32")
+    assert TorchEngine(init_params(qcfg, 0, device="cpu"), qcfg,
+                       "prefix").policy.name == "prefix"
+
+
+# ------------------------------------------------ engines free their weights
+def test_del_engine_frees_its_weights_without_the_collector():
+    """With the cyclic collector off, ``del`` of a served ``ServingEngine``
+    or ``ContinuousEngine`` and of the caller's ``params`` frees the
+    weights at once: no reference cycle holds an engine (the continuous
+    loop's scheduler calls back through a weak proxy)."""
+    import gc
+    import weakref
+
+    from repro_torch.core.rounds import SubsetGather
+    from repro_torch.serving import ContinuousEngine
+
+    tcfg = torch_smoke("qwen2.5-7b").replace(dtype="float32")
+    trace = torch_trace("generative_agents", 4, 1, tcfg.vocab_size, seed=11,
+                        jitter_hist=False)
+    aids = list(trace.agent_ids)
+    was = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        for kind in ("serving", "continuous"):
+            params = init_params(tcfg, 0, device="cpu")
+            refs = [weakref.ref(t) for t in (
+                params["embed"], params["lm_head"],
+                params["blocks"]["attn"]["wq"])]
+            if kind == "serving":
+                engine = TorchEngine(params, tcfg, gen_len=GEN,
+                                     recompute_ratio=0.1)
+                st = engine.serve(trace)
+            else:
+                engine = ContinuousEngine(
+                    params, tcfg, "tokendance",
+                    topology=SubsetGather.grouped(aids, 2), gen_len=GEN,
+                    recompute_ratio=0.1)
+                st = engine.serve(trace, stagger=[0, 4]).stats
+            assert len(st) >= 1
+            del engine, params
+            alive = [r() is not None for r in refs]
+            assert not any(alive), (kind, alive)
+    finally:
+        if was:
+            gc.enable()
