@@ -89,7 +89,24 @@ Phases (each prints its lines; any failure exits non-zero):
      through one projection);
   12. [qwen2-72b] Qwen2-72B at its published widths (d 8192, 64 query
      heads over 8, G 8: the decode kernels' largest group) with the depth
-     cut to 20 of 80 layers, as [qwen2.5-14b], timed;
+     cut to 20 of 80 layers, as [qwen2.5-14b], timed (from here on the
+     timed phases also time round 0's bf16 prefill);
+  12a. [gemma3-1b] Gemma3-1B at full width (26 layers, 4 query heads over
+     1, head dim 256, tied embeddings, window 512 on 5 layers of 6, bf16,
+     seed 0) as [qwen3-4b]: its window binds in rounds 1 and 2 (544 and
+     576 rows), so the dense loop's bit-equality checks the paged decode
+     kernel's window; ``flash_decode`` on the dense loop's largest call
+     against its plain version, timed;
+  12b. [gemma3-12b] Gemma3-12B at full width (48 layers, 16 over 8, head
+     dim 256, window 1024, which never binds on this trace) as
+     [qwen2.5-14b], timed;
+  12c. [gemma3 hd256] the attention kernels at head dim 256 with a
+     binding window of 1024 at Sk 1536 and ragged lengths, at both
+     Gemma3 head layouts in bf16 and f32: ``flash_decode`` and
+     ``flash_decode_paged`` bit-equal to each other, ``flash_prefill``
+     and ``flash_prefill_paged`` (span 1491 in pages, a tail of 45)
+     bit-equal to each other, each against its plain version and twice
+     for the same bits, timed at 12B's heads in f32;
   13. [hybrid] Hymba-1.5B at full width (32 layers, bf16, random weights
      from seed 0) served by ``ServingEngine(params, cfg, "tokendance")``
      on the same trace: the engine falls back to the recompute policy and
@@ -108,7 +125,8 @@ Phases (each prints its lines; any failure exits non-zero):
      and SDPA with a mask in both types, and the host time of one call;
   14. the f32 smoke configurations (Qwen2.5-7B with TokenDance and with
      the prefix policy, Hymba-1.5B with its recompute fallback,
-     Qwen2.5-14B, Qwen3-4B and Qwen2-72B with TokenDance) served on the
+     Qwen2.5-14B, Qwen3-4B, Qwen2-72B, Gemma3-1B and Gemma3-12B with
+     TokenDance) served on the
      card against the same engine on the CPU: greedy tokens and ledgers
      equal, logits within atol 1e-3;
   15. [restore] the storage walkthrough
@@ -1201,7 +1219,7 @@ def continuous(qwen):
     say(f"[continuous] phase {time.perf_counter() - t_phase:.1f} s")
 
 
-# ------------------------------------------------------ the Qwen family
+# ------------------------------------------- the Qwen and Gemma3 families
 def gib(n_bytes):
     return n_bytes / 2 ** 30
 
@@ -1270,12 +1288,14 @@ def forward_phase(dev, qwen):
     say(f"[forward] phase {time.perf_counter() - t_phase:.1f} s")
 
 
-def serve_qwen(dev, arch, n_layers=None):
-    """One Qwen config at its published widths (``n_layers`` cuts the
-    depth), bf16 weights random from seed 0, served by
-    ``ServingEngine(params, cfg)`` with its defaults on the main path's
-    trace; counts zeroed before and read after. Returns the weights, the
-    stats, the launches and the Recorder."""
+def serve_model(dev, arch, n_layers=None):
+    """One config at its published widths (``n_layers`` cuts the depth),
+    bf16 weights random from seed 0, served by ``ServingEngine(params,
+    cfg)`` with its defaults on the main path's trace; counts zeroed
+    before and read after. Each round says whether a sliding window binds
+    at its cache length (prompt + generation). Returns the weights, the
+    stats, the launches, the Recorder and the rounds whose window
+    binds."""
     from repro_torch.configs import get_config
     from repro_torch.core.rounds import generate_trace
     from repro_torch.kernels import ops
@@ -1294,8 +1314,11 @@ def serve_qwen(dev, arch, n_layers=None):
     say(f"[{tag}] {cut}, d {cfg.d_model}, heads {cfg.n_heads}/"
         f"{cfg.n_kv_heads} (G {cfg.n_heads // cfg.n_kv_heads}), head_dim "
         f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
-        f", qk_norm {cfg.qk_norm}, attn_bias {cfg.attn_bias}, {cfg.dtype}, "
-        f"~{cfg.param_count() / 1e9:.2f} B params served")
+        f", qk_norm {cfg.qk_norm}, attn_bias {cfg.attn_bias}, tied "
+        f"embeddings {cfg.tie_embeddings}, window "
+        f"{cfg.sliding_window or 'none'} (every "
+        f"{cfg.global_layer_interval or '-'}th layer global), "
+        f"{cfg.dtype}, ~{cfg.param_count() / 1e9:.2f} B params served")
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = init_params(cfg, 0, device=dev)
@@ -1310,12 +1333,18 @@ def serve_qwen(dev, arch, n_layers=None):
     stats, launches, rec = serve_phase(tag, engine, trace, ops)
     peak = torch.cuda.max_memory_allocated()
     n = len(trace.agent_ids)
+    binds = []
     for st in stats:
         comp = st.reuse.get("compression", {})
+        rows = st.prompt_len + engine.gen_len
+        if min(cfg.layer_window_sizes(rows)) < rows:
+            binds.append(st.round_idx)
         say(f"[{tag}] round {st.round_idx}: persistent "
             f"{st.persistent_bytes // n} B an agent, compression "
             f"{comp.get('compression_ratio', 1.0):.4f}x, "
-            f"{restore_line(st.reuse.get('restore'))}")
+            f"{restore_line(st.reuse.get('restore'))}, window "
+            f"{'binds' if st.round_idx in binds else 'does not bind'} at "
+            f"{rows} rows")
         assert st.outputs.shape == (n, engine.gen_len), st.outputs.shape
         assert ((st.outputs >= 0) & (st.outputs < cfg.vocab_size)).all()
         assert np.isfinite(st.first_logits).all(), st.round_idx
@@ -1334,7 +1363,7 @@ def serve_qwen(dev, arch, n_layers=None):
     del engine
     return dict(params=params, cfg=cfg, trace=trace, stats=stats,
                 launches=launches, rec=rec, peak=peak, weights=weights,
-                before=before + weights)
+                before=before + weights, binds=binds)
 
 
 def hold_kernels(tag, dev, served, timed):
@@ -1383,15 +1412,19 @@ def hold_kernels(tag, dev, served, timed):
             f"{k.shape[1]} rows ({q.dtype} on the path), max abs err "
             f"{errs[(f'flash_prefill:{call}', torch.bfloat16)]:.3g} (bf16) / "
             f"{errs[(f'flash_prefill:{call}', torch.float32)]:.3g} (f32)")
-        if timed and call != "round 0":
-            t = prefill_times(timer, q.float(), k.float(), v.float(), q_pos,
+        if timed:
+            # recovery's calls in f32 (the path's type from round 1), round
+            # 0's prefill in the model's type
+            dt = q.dtype if call == "round 0" else torch.float32
+            t = prefill_times(timer, q.to(dt), k.to(dt), v.to(dt), q_pos,
                               window, kv_len)
-            say(f"[kernel] flash_prefill, {tag} {call} call, f32: "
+            say(f"[kernel] flash_prefill, {tag} {call} call, {dt}: "
                 f"{times_line(t)}")
             rows.append(dict(
                 name="flash_prefill", call=f"{tag} {call}",
                 shape=list(q.shape) + [k.shape[1]],
-                launches=split["f32 fresh" if call == "fresh" else
+                launches=split["bf16" if call == "round 0" else
+                               "f32 fresh" if call == "fresh" else
                                "f32 selective"], launches_split=split,
                 max_abs_err=errs[(f"flash_prefill:{call}", q.dtype)],
                 max_abs_err_f32=errs[(f"flash_prefill:{call}",
@@ -1482,27 +1515,203 @@ def hold_kernels(tag, dev, served, timed):
     return rows
 
 
-def qwen_phase(dev, arch, n_layers=None, timed=True, dense=False):
+def dense_decode_row(tag, dev, kept, launches):
+    """``flash_decode`` on the dense loop's largest call (its last step of
+    round 2), against its plain version in bf16 and f32, twice for the
+    same bits and bit-equal to the paged kernel on the same rows, timed in
+    the path's type; its kernel-table row."""
+    from repro_torch.kernels import ops, ref
+
+    _, (q, k, v, kv_len, window), _ = kept
+    errs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
+        got = ops.flash_decode(qq, kk, vv, kv_len, window)
+        errs[dt] = check("flash_decode", got, ref.flash_decode_ref(
+            qq, kk, vv, kv_len, window), dt)
+        assert torch.equal(ops.flash_decode(qq, kk, vv, kv_len, window),
+                           got), (tag, dt, "two calls differ")
+    B, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    cols = torch.arange(Sk, device=dev)
+    kl = kv_len.long()[:, None]
+    mask = (cols[None] < kl) & (kl - 1 - cols[None] < window)
+    n = int(mask.sum().item())
+    t = decode_times(Timer(dev), lambda: ops.flash_decode(q, k, v, kv_len,
+                                                          window),
+                     lambda: ref.flash_decode_ref(q, k, v, kv_len, window),
+                     sdpa_decode(q, k, v, mask),
+                     nbytes(q, kv_len) + nbytes(q)
+                     + 2 * n * KV * hd * k.element_size(), 4 * hd * H * n,
+                     q.dtype)
+    say(f"[kernel] flash_decode, {tag} dense loop's call, q {list(q.shape)} "
+        f"over {list(k.shape)}, kv_len {kv_len.tolist()}, window {window}, "
+        f"{q.dtype}: {times_line(t)}, max abs err "
+        f"{errs[torch.bfloat16]:.3g} (bf16) / {errs[torch.float32]:.3g} "
+        f"(f32); two calls bit-equal")
+    return dict(name="flash_decode", call=f"{tag} dense",
+                shape=list(q.shape) + [Sk], launches=launches,
+                max_abs_err=errs[q.dtype],
+                max_abs_err_f32=errs[torch.float32], **t)
+
+
+def gemma_edges(dev):
+    """[gemma3 hd256]: the attention kernels at head dim 256 under a
+    binding window, at Gemma3-12B's heads (16 over 8) and Gemma3-1B's (4
+    over 1), in bf16 and f32, each against its plain version and twice
+    for the same bits: ``flash_decode`` over Sk 1536 with a window of
+    1024 and ragged lengths (1536, 1, 1100, 700), and
+    ``flash_decode_paged`` over the same rows as pages of 32, bit-equal
+    to it; ``flash_prefill`` at S 1536 with the window and a ragged
+    kv_len, and ``flash_prefill_paged`` over the same rows (pages for the
+    first 1491, a tail of 45) bit-equal to the dense kernel. CUDA-event
+    times at 12B's heads in f32, the type of the recovered KV."""
+    from repro_torch.kernels import ops, ref
+
+    t_phase = time.perf_counter()
+    timer = Timer(dev)
+    g = torch.Generator(device=dev).manual_seed(22)
+    Sk, W, hd = 1536, 1024, 256
+    for H, KV in ((16, 8), (4, 1)):
+        for dt in (torch.bfloat16, torch.float32):
+            def rnd(*shape):
+                return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+            def twice(fn, what):
+                got = fn()
+                assert torch.equal(fn(), got), (what, H, dt,
+                                                "two calls differ")
+                return got
+
+            B = 4
+            q, k, v = rnd(B, H, hd), rnd(B, Sk, KV, hd), rnd(B, Sk, KV, hd)
+            kl = torch.tensor([Sk, 1, 1100, 700], device=dev,
+                              dtype=torch.int32)
+            nbt = Sk // 32
+            pk = k.reshape(B * nbt, 32, KV, hd)
+            pv = v.reshape(B * nbt, 32, KV, hd)
+            pidx = torch.arange(B * nbt, device=dev, dtype=torch.int32
+                                ).reshape(B, nbt)
+            dense = twice(lambda: ops.flash_decode(q, k, v, kl, W),
+                          "flash_decode")
+            e_d = check("flash_decode", dense,
+                        ref.flash_decode_ref(q, k, v, kl, W), dt)
+            paged = twice(lambda: ops.flash_decode_paged(q, pk, pv, pidx, kl,
+                                                         window=W),
+                          "flash_decode_paged")
+            assert torch.equal(paged, dense), (H, dt, "paged != dense")
+            e_p = check("flash_decode_paged", paged,
+                        ref.flash_decode_paged_ref(q, pk, pv, pidx, kl,
+                                                   window=W), dt)
+            Bp, cut = 2, 45
+            span = Sk - cut
+            nbh = -(-span // 32)
+            qp, kp, vp = (rnd(Bp, Sk, H, hd), rnd(Bp, Sk, KV, hd),
+                          rnd(Bp, Sk, KV, hd))
+            pos = torch.arange(Sk, device=dev, dtype=torch.int32).expand(
+                Bp, Sk).contiguous()
+            klp = torch.tensor([Sk, Sk - cut], device=dev,
+                               dtype=torch.int32)
+            fp = twice(lambda: ops.flash_attention(qp, kp, vp, q_pos=pos,
+                                                   window=W, kv_len=klp),
+                       "flash_prefill")
+            e_f = check("flash_prefill", fp, ref.flash_attention_ref(
+                qp, kp, vp, q_pos=pos, window=W, kv_len=klp), dt)
+            ppk = kp[:, :nbh * 32].reshape(Bp * nbh, 32, KV, hd)
+            ppv = vp[:, :nbh * 32].reshape(Bp * nbh, 32, KV, hd)
+            ppidx = torch.arange(Bp * nbh, device=dev, dtype=torch.int32
+                                 ).reshape(Bp, nbh)
+            tk, tv = kp[:, span:].contiguous(), vp[:, span:].contiguous()
+            pp = twice(lambda: ops.flash_prefill_paged(
+                qp, ppk, ppv, ppidx, tk, tv, span_len=span, window=W),
+                "flash_prefill_paged")
+            assert torch.equal(pp, ops.flash_attention(
+                qp, kp, vp, q_pos=pos, window=W)), (H, dt, "paged != dense")
+            e_pp = check("flash_prefill_paged", pp,
+                         ref.flash_attention_paged_ref(
+                             qp, ppk, ppv, ppidx, tk, tv, span_len=span,
+                             window=W), dt)
+            say(f"[gemma3 hd256] heads {H}/{KV}, {dt}: flash_decode (Sk "
+                f"{Sk}, window {W}, kv_len {kl.tolist()}) max abs err "
+                f"{e_d:.3g}, flash_decode_paged {e_p:.3g} and bit-equal to "
+                f"it; flash_prefill (S {Sk}, window {W}, kv_len "
+                f"{klp.tolist()}) {e_f:.3g}; flash_prefill_paged (span "
+                f"{span} + tail {cut}) {e_pp:.3g} and bit-equal to the dense "
+                f"kernel; every call twice bit-equal")
+            if (H, dt) != (16, torch.float32):
+                continue
+            mask = torch.arange(Sk, device=dev)[None] < kl[:, None]
+            mask &= kl[:, None] - 1 - torch.arange(Sk, device=dev)[None] < W
+            n = int(mask.sum().item())
+            dbytes = nbytes(q, kl) + nbytes(q) + 2 * n * KV * hd * 4
+            for name, fn, plain in (
+                    ("flash_decode", lambda: ops.flash_decode(q, k, v, kl, W),
+                     lambda: ref.flash_decode_ref(q, k, v, kl, W)),
+                    ("flash_decode_paged",
+                     lambda: ops.flash_decode_paged(q, pk, pv, pidx, kl,
+                                                    window=W),
+                     lambda: ref.flash_decode_paged_ref(q, pk, pv, pidx, kl,
+                                                        window=W))):
+                t = decode_times(timer, fn, plain,
+                                 sdpa_decode(q, k, v, mask), dbytes,
+                                 4 * hd * H * n, dt)
+                say(f"[kernel] {name} at hd 256, q {list(q.shape)} over "
+                    f"{Sk} rows, window {W}, f32: {times_line(t)}")
+            t = prefill_times(timer, qp, kp, vp, pos, W, klp)
+            say(f"[kernel] flash_prefill at hd 256, q {list(qp.shape)} over "
+                f"{Sk} rows, window {W}, kv_len {klp.tolist()}, f32: "
+                f"{times_line(t)}")
+            flops = 4 * hd * H * allowed_cols(pos, W, Sk)
+            bms, by = bound(nbytes(qp, ppk, ppv, ppidx, tk, tv) + nbytes(qp),
+                            flops, dt, split_tf32=True)
+            cols = torch.arange(Sk, device=dev)
+            dl = pos.long()[:, :, None] - cols
+            pmask = ((dl >= 0) & (dl < W))[:, None]
+            qt, kt, vt = (x.transpose(1, 2) for x in (qp, kp, vp))
+            t = dict(
+                ms=timer(lambda: ops.flash_prefill_paged(
+                    qp, ppk, ppv, ppidx, tk, tv, span_len=span, window=W)),
+                plain_ms=timer(lambda: ref.flash_attention_paged_ref(
+                    qp, ppk, ppv, ppidx, tk, tv, span_len=span, window=W)),
+                library_ms=timer(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=pmask, enable_gqa=True)),
+                bound_ms=bms, bound_by=by,
+                bound_cuda_core_ms=bound(
+                    nbytes(qp, ppk, ppv, ppidx, tk, tv) + nbytes(qp), flops,
+                    dt)[0])
+            say(f"[kernel] flash_prefill_paged at hd 256, q "
+                f"{list(qp.shape)} over {nbh} pages + {cut} tail rows, "
+                f"window {W}, f32: {times_line(t)}")
+    say(f"[gemma3 hd256] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def model_phase(dev, arch, n_layers=None, timed=True, dense=False,
+                binds=None):
     """[<arch>]: serve, hold the path's kernels at its head layout, with
     ``dense`` serve again through the dense decode loop on the same
-    weights (bit-equal), then free the weights. Returns the kernel-table
-    rows."""
+    weights (bit-equal), then free the weights. ``binds``: the rounds in
+    which a sliding window must bind. Returns the kernel-table rows."""
     from repro_torch.kernels import ops
     from repro_torch.serving import ServingEngine
 
     t_phase = time.perf_counter()
-    served = serve_qwen(dev, arch, n_layers)
+    served = serve_model(dev, arch, n_layers)
     tag = served["cfg"].name
+    if binds is not None:
+        assert served["binds"] == binds, (tag, served["binds"], binds)
     rows = hold_kernels(tag, dev, served, timed)
     if dense:
         engine = ServingEngine(served["params"], served["cfg"],
                                paged_decode=False, keep_logits=True)
         other, dl, drec = serve_phase(f"{tag} dense", engine,
                                       served["trace"], ops)
-        del engine, drec          # drec keeps clones of the kernels' inputs
+        del engine
         bit_equal(f"{tag} dense", served["stats"], other,
                   "the paged decode loop's")
         assert dl["flash_decode"] > 0 and dl["flash_decode_paged"] == 0, dl
+        rows.append(dense_decode_row(tag, dev, drec.kept["flash_decode"],
+                                     dl["flash_decode"]))
+        del drec                  # it keeps clones of the kernels' inputs
     before, weights = served["before"], served["weights"]
     served.clear()
     del served
@@ -1767,7 +1976,9 @@ def smoke_parity(dev):
                          ("hymba-1.5b", "tokendance"),
                          ("qwen2.5-14b", "tokendance"),
                          ("qwen3-4b", "tokendance"),
-                         ("qwen2-72b", "tokendance")):
+                         ("qwen2-72b", "tokendance"),
+                         ("gemma3-1b", "tokendance"),
+                         ("gemma3-12b", "tokendance")):
         cfg = get_smoke_config(arch).replace(dtype="float32")
         cpu_params = init_params(cfg, 0, device="cpu")
         gpu_params = to_dev(cpu_params)
@@ -1986,10 +2197,17 @@ def main() -> int:
     weights = nbytes(*tensors(qwen["params"]))
     del qwen
     freed("qwen2.5-7b", before, weights)
-    table += table_rows(qwen_phase(dev, "qwen2.5-14b"))
-    table += table_rows(qwen_phase(dev, "qwen3-4b", timed=False,
-                                   dense=True))
-    table += table_rows(qwen_phase(dev, "qwen2-72b", n_layers=20))
+    table += table_rows(model_phase(dev, "qwen2.5-14b", binds=[]))
+    table += table_rows(model_phase(dev, "qwen3-4b", timed=False,
+                                    dense=True, binds=[]))
+    table += table_rows(model_phase(dev, "qwen2-72b", n_layers=20, binds=[]))
+    # Gemma3: 1B's window of 512 binds at rounds 1 and 2 (544 and 576
+    # rows), so [gemma3-1b dense] holds the paged kernel's window bit for
+    # bit against the dense kernel's; 12B's window of 1024 never binds
+    table += table_rows(model_phase(dev, "gemma3-1b", timed=False,
+                                    dense=True, binds=[1, 2]))
+    table += table_rows(model_phase(dev, "gemma3-12b", binds=[]))
+    gemma_edges(dev)
     hlaunches, hkept = hybrid(dev)
     hybrid_prefill(dev, hkept)
     table += table_rows([decode_kernel(dev, hlaunches, hkept,

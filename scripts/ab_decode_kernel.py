@@ -16,8 +16,9 @@ every wrapper makes; ``_split_us``: the decode wrappers' scratch and
 ticket set-up, that query included, where the checkout has it), SDPA's
 time on the same
 inputs (``scaled_dot_product_attention`` with a boolean mask, GQA; over
-the gathered rows for the paged kernel) and the card's name and power
-limit.
+the gathered rows for the paged kernel), a hash of every case's output
+bits (``_bits``: two trees that give the same bits give the same hash)
+and the card's name and power limit.
 
 Cases, at the shapes the serving paths give the kernels (8 sequences at
 the first decode step of round 2, 545 rows valid of 576):
@@ -43,7 +44,7 @@ import subprocess
 import sys
 
 CODE = r"""
-import json, statistics, subprocess, sys, time, torch
+import hashlib, json, statistics, subprocess, sys, time, torch
 import torch.nn.functional as F
 sys.path.insert(0, 'src')
 from repro_torch.kernels import ops
@@ -98,6 +99,9 @@ def host_parts(key, fn, q, n_tiles, KV):
     if hasattr(ops, '_split_operands'):
         out[f'{key}_split_us'] = host_us(
             lambda: ops._split_operands(q, n_tiles, KV))
+def bits(x):
+    return hashlib.sha1(x.contiguous().view(torch.uint8).cpu().numpy()
+                        .tobytes()).hexdigest()[:16]
 def sdpa(q, k, v, kv_len):
     mask = (torch.arange(k.shape[1], device=dev)[None] < kv_len[:, None])
     q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
@@ -115,6 +119,7 @@ for name, (H, KV, hd) in {'qwen': (28, 4, 128), 'hymba': (25, 5, 64)}.items():
         v = torch.randn(B, Sk, KV, hd, generator=g, device=dev).to(dt)
         dense = lambda: ops.flash_decode(q, k, v, kv_len, Sk)
         out[f'{name}_{tag}'] = timer(dense)
+        out[f'{name}_{tag}_bits'] = bits(dense())
         out[f'{name}_{tag}_warm'] = timer(dense, cold=False)
         host_parts(f'{name}_{tag}', dense, q, Sk // 32, KV)
         out[f'{name}_{tag}_sdpa'] = timer(sdpa(q, k, v, kv_len))
@@ -127,6 +132,7 @@ for name, (H, KV, hd) in {'qwen': (28, 4, 128), 'hymba': (25, 5, 64)}.items():
         pv = torch.randn(P, 32, KV, hd, generator=g, device=dev).to(dt)
         paged = lambda: ops.flash_decode_paged(q, pk, pv, pidx, kv_len)
         out[f'paged_{tag}'] = timer(paged)
+        out[f'paged_{tag}_bits'] = bits(paged())
         out[f'paged_{tag}_warm'] = timer(paged, cold=False)
         host_parts(f'paged_{tag}', paged, q, nbt, KV)
         kd = pk[pidx.long()].reshape(B, Sk, KV, hd)

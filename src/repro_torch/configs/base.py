@@ -181,6 +181,8 @@ ARCH_IDS = {
     "qwen2-72b": "qwen2_72b",
     "qwen3-4b": "qwen3_4b",
     "hymba-1.5b": "hymba_1_5b",
+    "gemma3-1b": "gemma3_1b",
+    "gemma3-12b": "gemma3_12b",
 }
 
 

@@ -111,7 +111,8 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
   constexpr int kGroupRows = kBT / kGroups;
   constexpr int kCopies = (kBT * kWords + kThreads - 1) / kThreads;
   constexpr int kOuts = kMaxG * HD / kThreads;  // outputs a thread merges
-  static_assert(kThreads % HD == 0 && kOuts >= 1, "HD must be 32, 64 or 128");
+  static_assert(kThreads % HD == 0 && kOuts >= 1,
+                "HD must be 32, 64, 128 or 256");
   static_assert(kMaxG <= kWarps, "warp g scores head g");
   static_assert(kGroups * kMaxG * HD * 4 <= smem_bytes<T, HD>(),
                 "the row groups' sums reuse the ring");

@@ -106,15 +106,15 @@ static int launch_typed(const void* q, const void* k, const void* v,
   const T* vv = (const T*)v;
   T* oo = (T*)out;
   switch (hd) {
-    case 32:
-      return launch_hd<T, 32>(grid, qq, kk, vv, kv_len, oo, part, tickets, H,
-                              KV, Sk, window, scale, st);
-    case 64:
-      return launch_hd<T, 64>(grid, qq, kk, vv, kv_len, oo, part, tickets, H,
-                              KV, Sk, window, scale, st);
-    case 128:
-      return launch_hd<T, 128>(grid, qq, kk, vv, kv_len, oo, part, tickets,
-                               H, KV, Sk, window, scale, st);
+#define DENSE_CASE(d)                                                       \
+  case d:                                                                   \
+    return launch_hd<T, d>(grid, qq, kk, vv, kv_len, oo, part, tickets, H,  \
+                           KV, Sk, window, scale, st);
+    DENSE_CASE(32)
+    DENSE_CASE(64)
+    DENSE_CASE(128)
+    DENSE_CASE(256)
+#undef DENSE_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

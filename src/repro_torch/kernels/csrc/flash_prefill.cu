@@ -22,16 +22,17 @@
 // not. What the tile function still lacks is wgmma's rate. See
 // prefill_attn.cuh and PERF.md.
 //
-// Design: one block of 128 threads per (64-row q tile, query head, batch
-// row), running prefill::attend (prefill_attn.cuh, whose tile code the
-// paged prefill kernel shares) over a dense KV: column c is row c of batch
-// row b, loaded as zeros at c >= Sk. A launch takes the tile function's
-// dynamic shared memory (prefill::smem_bytes at head dim 128: the ring,
-// 68 KB in bf16; the ring and Q, 101 KB in f32).
+// Design: one block of 128 threads (256 at head dim 256, two warps a row
+// group, each with half the output columns) per (64-row q tile, query
+// head, batch row), running prefill::attend (prefill_attn.cuh, whose tile
+// code the paged prefill kernel shares) over a dense KV: column c is row
+// c of batch row b, loaded as zeros at c >= Sk. A launch takes the tile
+// function's dynamic shared memory (prefill::smem_bytes at head dim 128:
+// the ring, 68 KB in bf16; the ring and Q, 101 KB in f32; at head dim 256
+// 165 KB in bf16 and 197 KB in f32, one block an SM).
 #include "prefill_attn.cuh"
 
 using prefill::kBQ;
-using prefill::kThreads;
 
 namespace {
 
@@ -55,7 +56,7 @@ struct DenseRows {
 }  // namespace
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(prefill::threads<HD>())
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      const int* __restrict__ q_pos, const int* __restrict__ kv_len,
@@ -80,7 +81,7 @@ static int launch_hd(dim3 grid, const T* q, const T* k, const T* v, T* out,
       flash_prefill_kernel<T, HD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  flash_prefill_kernel<T, HD><<<grid, kThreads, smem, st>>>(
+  flash_prefill_kernel<T, HD><<<grid, prefill::threads<HD>(), smem, st>>>(
       q, k, v, out, q_pos, kv_len, Sq, Sk, H, KV, window, scale, vec);
   return (int)cudaGetLastError();
 }
@@ -97,15 +98,15 @@ static int launch_typed(const void* q, const void* k, const void* v, void* out,
   const T* vv = (const T*)v;
   T* oo = (T*)out;
   switch (hd) {
-    case 32:
-      return launch_hd<T, 32>(grid, qq, kk, vv, oo, q_pos, kv_len, Sq, Sk, H,
-                              KV, window, scale, vec, st);
-    case 64:
-      return launch_hd<T, 64>(grid, qq, kk, vv, oo, q_pos, kv_len, Sq, Sk, H,
-                              KV, window, scale, vec, st);
-    case 128:
-      return launch_hd<T, 128>(grid, qq, kk, vv, oo, q_pos, kv_len, Sq, Sk, H,
-                               KV, window, scale, vec, st);
+#define PREFILL_CASE(d)                                                      \
+  case d:                                                                    \
+    return launch_hd<T, d>(grid, qq, kk, vv, oo, q_pos, kv_len, Sq, Sk, H,   \
+                           KV, window, scale, vec, st);
+    PREFILL_CASE(32)
+    PREFILL_CASE(64)
+    PREFILL_CASE(128)
+    PREFILL_CASE(256)
+#undef PREFILL_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -22,8 +22,8 @@
 // row's 16-byte words are gathered by cp.async from wherever its page
 // lies).
 //
-// Design: one block of 128 threads per (64-row q tile, query head,
-// sequence), running prefill::attend (prefill_attn.cuh), the tile code of
+// Design: one block of prefill::threads<hd>() threads (128; 256 at head
+// dim 256) per (64-row q tile, query head, sequence), running prefill::attend (prefill_attn.cuh), the tile code of
 // the dense kernel, with PagedRows saying where each row lives. Rows are
 // addressed one by one, so the tiles hold the same rows as the dense
 // kernel's over the gathered stream and both give the same bits, for any
@@ -31,7 +31,6 @@
 #include "prefill_attn.cuh"
 
 using prefill::kBQ;
-using prefill::kThreads;
 
 namespace {
 
@@ -66,7 +65,7 @@ struct PagedRows {
 }  // namespace
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(prefill::threads<HD>())
 flash_prefill_paged_kernel(const T* __restrict__ q, const T* __restrict__ pk,
                            const T* __restrict__ pv,
                            const int* __restrict__ page_idx,
@@ -96,7 +95,7 @@ static int launch_hd(dim3 grid, const T* q, const T* pk, const T* pv,
       flash_prefill_paged_kernel<T, HD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  flash_prefill_paged_kernel<T, HD><<<grid, kThreads, smem, st>>>(
+  flash_prefill_paged_kernel<T, HD><<<grid, prefill::threads<HD>(), smem, st>>>(
       q, pk, pv, page_idx, tk, tv, out, q_pos, Sq, H, KV, bt, nbh, span,
       tail_rows, window, causal, scale, vec);
   return (int)cudaGetLastError();
@@ -118,18 +117,16 @@ static int launch_typed(const void* q, const void* pk, const void* pv,
   const T* tvv = (const T*)tv;
   T* oo = (T*)out;
   switch (hd) {
-    case 32:
-      return launch_hd<T, 32>(grid, qq, kk, vv, page_idx, tkk, tvv, oo, q_pos,
-                              Sq, H, KV, bt, nbh, span, tail_rows, window,
-                              causal, scale, vec, st);
-    case 64:
-      return launch_hd<T, 64>(grid, qq, kk, vv, page_idx, tkk, tvv, oo, q_pos,
-                              Sq, H, KV, bt, nbh, span, tail_rows, window,
-                              causal, scale, vec, st);
-    case 128:
-      return launch_hd<T, 128>(grid, qq, kk, vv, page_idx, tkk, tvv, oo,
-                               q_pos, Sq, H, KV, bt, nbh, span, tail_rows,
-                               window, causal, scale, vec, st);
+#define PAGED_CASE(d)                                                        \
+  case d:                                                                    \
+    return launch_hd<T, d>(grid, qq, kk, vv, page_idx, tkk, tvv, oo, q_pos,  \
+                           Sq, H, KV, bt, nbh, span, tail_rows, window,      \
+                           causal, scale, vec, st);
+    PAGED_CASE(32)
+    PAGED_CASE(64)
+    PAGED_CASE(128)
+    PAGED_CASE(256)
+#undef PAGED_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

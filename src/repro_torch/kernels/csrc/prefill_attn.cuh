@@ -62,6 +62,18 @@
 // a pair at 495 TFLOP/s (0.103 ms at [8,544,28,128] causal; 0.254 ms at
 // the CUDA cores' 67 TFLOP/s of plain f32).
 //
+// Head dim 256 (Gemma3): a warp's accumulator over all 256 output columns
+// would be 128 registers a lane before Q, the scores and the V fragments,
+// past the 255 a thread has. So a block has 8 warps: the two warps of a
+// row group both compute the group's full scores and softmax (the same
+// instructions on the same tile, so the same values) and each multiplies
+// P by its half of V's columns, into 64 accumulator registers. The
+// duplicated Q K^T costs a third more tensor work in bf16 and half more in
+// f32; the alternative, P staged in shared memory between the two, costs
+// a barrier a tile. Q lives in shared memory in both policies (bf16 reads
+// its A fragments by ldmatrix). The ring and Q take 165 KB in bf16 and
+// 197 KB in f32: one block an SM.
+//
 // Column c sits at position c. A query at position p may see column c iff
 // c < rows.len(), p - c < window, and, when causal, p - c >= 0. The two
 // kernels differ only in where column c's K/V row lives: a Rows type says,
@@ -84,7 +96,18 @@
 namespace prefill {
 
 constexpr int kBQ = 64;       // query rows per block
-constexpr int kThreads = 128;
+
+// Warps that share one 16-row group of the q tile, each owning 1 /
+// col_split of the output columns: 2 at head dim 256, where one warp's
+// f32 accumulator of 16 rows x 256 columns would take 128 registers a
+// lane before Q, the scores and the V fragments, and 1 below it.
+template <int HD>
+__host__ __device__ constexpr int col_split() { return HD > 128 ? 2 : 1; }
+
+// Threads of a block of prefill::attend<T, HD>: 4 row groups of 16 query
+// rows, each served by col_split<HD>() warps.
+template <int HD>
+__host__ __device__ constexpr int threads() { return 128 * col_split<HD>(); }
 
 // --------------------------------------------------------------- bf16
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -156,21 +179,41 @@ struct Bf16Op {
   static constexpr int kStages = 2;
   static constexpr int kPK = HD + 8;    // shared row pitches, elements
   static constexpr int kPV = HD + 8;
-  static constexpr int kPQ = 0;         // Q in registers
+  static constexpr int kOut = HD / col_split<HD>();  // output columns a warp
+  // Q's A fragments stay in registers up to hd 128 (64 a lane there); at
+  // hd 256 Q is staged in shared memory and each k-step's fragment is
+  // read by ldmatrix (the same values, so the same products)
+  static constexpr bool kQRegs = HD <= 128;
+  static constexpr int kPQ = kQRegs ? 0 : HD + 8;
 
-  uint32_t qf[HD / 16][4];              // Q's A fragments, k-steps of 16
+  uint32_t qf[kQRegs ? HD / 16 : 1][4];  // Q's A fragments, k-steps of 16
+  const T* qw;                           // or this row group's Q rows
 
   __device__ __forceinline__ void load_q(const T* q, long long o0,
                                          long long o1, bool v0, bool v1,
-                                         int tg, const T*) {
-    const bool qal = (reinterpret_cast<uintptr_t>(q) & 3) == 0;
+                                         int tg, const T* qs) {
+    if constexpr (kQRegs) {
+      const bool qal = (reinterpret_cast<uintptr_t>(q) & 3) == 0;
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-      const int c = 16 * ks + 2 * tg;
-      qf[ks][0] = v0 ? load_pair(q + o0 + c, qal) : 0u;
-      qf[ks][1] = v1 ? load_pair(q + o1 + c, qal) : 0u;
-      qf[ks][2] = v0 ? load_pair(q + o0 + c + 8, qal) : 0u;
-      qf[ks][3] = v1 ? load_pair(q + o1 + c + 8, qal) : 0u;
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const int c = 16 * ks + 2 * tg;
+        qf[ks][0] = v0 ? load_pair(q + o0 + c, qal) : 0u;
+        qf[ks][1] = v1 ? load_pair(q + o1 + c, qal) : 0u;
+        qf[ks][2] = v0 ? load_pair(q + o0 + c + 8, qal) : 0u;
+        qf[ks][3] = v1 ? load_pair(q + o1 + c + 8, qal) : 0u;
+      }
+    } else {
+      qw = qs;
+    }
+  }
+
+  static __device__ __forceinline__ void tile_scores(
+      float (&s)[kBK / 8][4], const uint32_t (&a)[4],
+      const uint32_t (&kf)[kBK / 16][4]) {
+#pragma unroll
+    for (int np = 0; np < kBK / 16; ++np) {
+      mma_bf16(s[2 * np], a, kf[np][0], kf[np][1]);
+      mma_bf16(s[2 * np + 1], a, kf[np][2], kf[np][3]);
     }
   }
 
@@ -184,16 +227,21 @@ struct Bf16Op {
       for (int np = 0; np < kBK / 16; ++np)
         ldmatrix_x4(kf[np], Ks + (16 * np + (lane >> 4) * 8 + (lane & 7)) *
                                      kPK + 16 * ks + ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int np = 0; np < kBK / 16; ++np) {
-        mma_bf16(s[2 * np], qf[ks], kf[np][0], kf[np][1]);
-        mma_bf16(s[2 * np + 1], qf[ks], kf[np][2], kf[np][3]);
+      if constexpr (kQRegs) {
+        tile_scores(s, qf[ks], kf);
+      } else {
+        // lanes 0-15 address rows 0-15 at k 16 ks, lanes 16-31 the same
+        // rows at k 16 ks + 8: the m16k16 A fragment
+        uint32_t a[4];
+        ldmatrix_x4(a, qw + (lane & 15) * kPQ + 16 * ks + (lane >> 4) * 8);
+        tile_scores(s, a, kf);
       }
     }
   }
 
-  // acc += P V, P as hi + lo
-  __device__ __forceinline__ void pv(float (&acc)[HD / 8][4],
+  // acc += P V over this warp's kOut output columns (Vs points at the
+  // first), P as hi + lo
+  __device__ __forceinline__ void pv(float (&acc)[kOut / 8][4],
                                      const float (&s)[kBK / 8][4],
                                      const T* Vs, int lane) const {
 #pragma unroll
@@ -203,14 +251,14 @@ struct Bf16Op {
       split_pair(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
       split_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
       split_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-      uint32_t vf[HD / 16][4];
+      uint32_t vf[kOut / 16][4];
 #pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp)
+      for (int dp = 0; dp < kOut / 16; ++dp)
         ldmatrix_x4_trans(vf[dp], Vs + (16 * kk + ((lane >> 3) & 1) * 8 +
                                         (lane & 7)) * kPV +
                                       16 * dp + (lane >> 4) * 8);
 #pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
+      for (int dp = 0; dp < kOut / 16; ++dp) {
         mma_bf16(acc[2 * dp], ph, vf[dp][0], vf[dp][1]);
         mma_bf16(acc[2 * dp], pl, vf[dp][0], vf[dp][1]);
         mma_bf16(acc[2 * dp + 1], ph, vf[dp][2], vf[dp][3]);
@@ -220,12 +268,12 @@ struct Bf16Op {
   }
 
   __device__ __forceinline__ void store(T* out, long long o0, long long o1,
-                                        const float (&acc)[HD / 8][4],
+                                        const float (&acc)[kOut / 8][4],
                                         float d0, float d1, bool v0, bool v1,
                                         int tg) const {
     const bool oal = (reinterpret_cast<uintptr_t>(out) & 3) == 0;
 #pragma unroll
-    for (int d = 0; d < HD / 8; ++d) {
+    for (int d = 0; d < kOut / 8; ++d) {
       const int c = 8 * d + 2 * tg;
       if (v0) store_pair(out + o0 + c, acc[d][0] / d0, acc[d][1] / d0, oal);
       if (v1) store_pair(out + o1 + c, acc[d][2] / d1, acc[d][3] / d1, oal);
@@ -276,6 +324,7 @@ struct Tf32Op {
   static constexpr int kPK = HD + 8;    // = 8 (mod 32) words: 8-byte K reads
   static constexpr int kPV = HD + 4;    // = 4 (mod 16) words: 8-byte V reads
   static constexpr int kPQ = HD + 8;    // Q in shared memory, pitched as K
+  static constexpr int kOut = HD / col_split<HD>();  // output columns a warp
 
   const float* qw;                      // this warp's 16 rows of Q
 
@@ -313,12 +362,13 @@ struct Tf32Op {
     }
   }
 
-  // acc += P V. k-step kk is score slice kk, keys in the order (0, 2, 4,
+  // acc += P V over this warp's kOut output columns (Vs points at the
+  // first). k-step kk is score slice kk, keys in the order (0, 2, 4,
   // 6, 1, 3, 5, 7): column l % 4 of P's A fragment is key 2 (l % 4), held
   // in s[kk][0] / [2], and column l % 4 + 4 is key 2 (l % 4) + 1, in
   // s[kk][1] / [3]. Output slices 2 e and 2 e + 1 take dims 16 e + 2 n and
   // 16 e + 2 n + 1 for their column n.
-  __device__ __forceinline__ void pv(float (&acc)[HD / 8][4],
+  __device__ __forceinline__ void pv(float (&acc)[kOut / 8][4],
                                      const float (&s)[kBK / 8][4],
                                      const T* Vs, int lane) const {
     const int g = lane >> 2, tg = lane & 3;
@@ -331,14 +381,14 @@ struct Tf32Op {
       split_tf32(s[kk][3], ph[3], pl[3]);
       const T* const va = Vs + (8 * kk + 2 * tg) * kPV + 2 * g;   // key 2 tg
       const T* const vb = va + kPV;                               // + 1
-      float2 fa[HD / 16], fb[HD / 16];
+      float2 fa[kOut / 16], fb[kOut / 16];
 #pragma unroll
-      for (int e = 0; e < HD / 16; ++e) {
+      for (int e = 0; e < kOut / 16; ++e) {
         fa[e] = *reinterpret_cast<const float2*>(va + 16 * e);
         fb[e] = *reinterpret_cast<const float2*>(vb + 16 * e);
       }
 #pragma unroll
-      for (int e = 0; e < HD / 16; ++e) {
+      for (int e = 0; e < kOut / 16; ++e) {
         const float2 a = fa[e], b = fb[e];
         uint32_t ah, al, bh, bl;
         split_tf32(a.x, ah, al);
@@ -354,11 +404,11 @@ struct Tf32Op {
   // rows r0 and r1, dims 16 e + 4 (l % 4) .. + 3 of each slice pair, as
   // 16-byte stores (out is the wrappers' torch.empty_like: aligned)
   __device__ __forceinline__ void store(T* out, long long o0, long long o1,
-                                        const float (&acc)[HD / 8][4],
+                                        const float (&acc)[kOut / 8][4],
                                         float d0, float d1, bool v0, bool v1,
                                         int tg) const {
 #pragma unroll
-    for (int e = 0; e < HD / 16; ++e) {
+    for (int e = 0; e < kOut / 16; ++e) {
       const float(&x)[4] = acc[2 * e];
       const float(&y)[4] = acc[2 * e + 1];
       const int c = 16 * e + 4 * tg;
@@ -402,7 +452,8 @@ __device__ __forceinline__ void attend_tc(const T* __restrict__ q,
                                           float scale, bool vec,
                                           const Rows& rows) {
   constexpr int BK = Op::kBK, S = Op::kStages, PK = Op::kPK, PV = Op::kPV;
-  constexpr int ND = HD / 8;             // 8-column slices of the output
+  constexpr int kSplit = col_split<HD>(), kThreads = threads<HD>();
+  constexpr int ND = Op::kOut / 8;       // 8-column slices of a warp's output
   constexpr int NS = BK / 8;             // 8-column slices of a score tile
   constexpr int kVec = 16 / (int)sizeof(T);
   constexpr int kWords = HD / kVec;      // 16-byte words a row
@@ -412,8 +463,10 @@ __device__ __forceinline__ void attend_tc(const T* __restrict__ q,
   __shared__ int s_qmin, s_qmax;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // warp w serves row group w % 4 and output columns part w / 4
+  const int rw = warp % 4, part = warp / 4;
   const int g = lane >> 2, tg = lane & 3;
-  const int r0 = tile * kBQ + warp * 16 + g, r1 = r0 + 8;
+  const int r0 = tile * kBQ + rw * 16 + g, r1 = r0 + 8;
   const bool v0 = r0 < Sq, v1 = r1 < Sq;
   const long long qb = (long long)b * Sq;
   const int p0 = !v0 ? 0 : q_pos ? q_pos[qb + r0] : r0;
@@ -428,22 +481,26 @@ __device__ __forceinline__ void attend_tc(const T* __restrict__ q,
   }
 
   const long long o0 = ((qb + r0) * H + h) * HD, o1 = ((qb + r1) * H + h) * HD;
-  // Op::kPQ > 0: Q in shared memory after the ring, warp w's 16 rows at qs
-  T* const qs = ring + S * kStage + warp * 16 * Op::kPQ;
+  const int cq = part * Op::kOut;         // this warp's first output column
+  // Op::kPQ > 0: Q in shared memory after the ring, row group w's 16 rows
+  // at qs
+  T* const qs = ring + S * kStage + rw * 16 * Op::kPQ;
   if constexpr (Op::kPQ > 0) {
-    // warp w stages its own 16 rows (zeros past Sq)
+    // the warps of row group w stage its 16 rows (zeros past Sq); the
+    // barrier before the KV loop orders these writes before any read
     if ((reinterpret_cast<uintptr_t>(q) & 15) == 0) {
-      for (int idx = lane; idx < 16 * kWords; idx += 32) {
+      for (int idx = lane + 32 * part; idx < 16 * kWords;
+           idx += 32 * kSplit) {
         const int i = idx / kWords, d = kVec * (idx % kWords);
-        const int r = tile * kBQ + warp * 16 + i;
+        const int r = tile * kBQ + rw * 16 + i;
         uint4 x = make_uint4(0u, 0u, 0u, 0u);
         if (r < Sq)
           x = *reinterpret_cast<const uint4*>(q + ((qb + r) * H + h) * HD + d);
         *reinterpret_cast<uint4*>(qs + i * Op::kPQ + d) = x;
       }
     } else {
-      for (int idx = lane; idx < 16 * HD; idx += 32) {
-        const int i = idx / HD, d = idx % HD, r = tile * kBQ + warp * 16 + i;
+      for (int idx = lane + 32 * part; idx < 16 * HD; idx += 32 * kSplit) {
+        const int i = idx / HD, d = idx % HD, r = tile * kBQ + rw * 16 + i;
         qs[i * Op::kPQ + d] =
             r < Sq ? q[((qb + r) * H + h) * HD + d] : from_f32<T>(0.f);
       }
@@ -561,7 +618,7 @@ __device__ __forceinline__ void attend_tc(const T* __restrict__ q,
       acc[d][3] *= a1;
     }
 
-    op.pv(acc, s, Vs, lane);
+    op.pv(acc, s, Vs + cq, lane);
     __syncthreads();                    // slot i % S is refilled next
   }
   cp_async_wait<0>();
@@ -571,8 +628,8 @@ __device__ __forceinline__ void attend_tc(const T* __restrict__ q,
     l0 += __shfl_xor_sync(0xffffffffu, l0, o);
     l1 += __shfl_xor_sync(0xffffffffu, l1, o);
   }
-  op.store(out, o0, o1, acc, fmaxf(l0, 1e-30f), fmaxf(l1, 1e-30f), v0, v1,
-           tg);
+  op.store(out, o0 + cq, o1 + cq, acc, fmaxf(l0, 1e-30f), fmaxf(l1, 1e-30f),
+           v0, v1, tg);
 }
 
 // The tile function of both prefill kernels. A launch passes

@@ -112,6 +112,7 @@ int launch(const T* k, T* out, const int* delta, const float* inv_freq,
     ROPE_CASE(4)
     ROPE_CASE(8)
     ROPE_CASE(16)
+    ROPE_CASE(32)
 #undef ROPE_CASE
     default:
       return (int)cudaErrorInvalidValue;
@@ -121,8 +122,10 @@ int launch(const T* k, T* out, const int* delta, const float* inv_freq,
 
 }  // namespace rope_align
 
-// k, out [A, S, KV, hd], 16-byte aligned; half a head fills 2, 4, 8 or 16
-// whole 16-byte words (hd 32, 64, 128 in both types).
+// k, out [A, S, KV, hd], 16-byte aligned; half a head fills 2, 4, 8, 16
+// or 32 whole 16-byte words (hd 32, 64, 128, 256 in both types; 32 words
+// is f32 at hd 256, whose 128 angles a token still take one pass of the
+// block's first 128 threads).
 extern "C" int rope_align_launch(const void* k, void* out, const int* delta,
                                  const float* inv_freq, int A, int D, int S,
                                  int KV, int hd, int dtype, void* stream) {

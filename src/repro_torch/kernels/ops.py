@@ -37,6 +37,8 @@ LAUNCHES: Dict[str, int] = {"rope_align": 0, "block_diff": 0,
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims the attention and RoPE kernels are instantiated for
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def reset_launches() -> None:
@@ -112,7 +114,7 @@ def rope_align(k: torch.Tensor, delta: torch.Tensor,
     """Rotate keys ``[A..., S, KV, hd]`` by position deltas ``[S]`` (all
     leading rows) or ``[D, S]`` (leading row ``a`` uses ``delta[a //
     (A // D)]``) — ONE launch over every leading row. The kernel takes
-    head dims 32, 64 and 128, keys 16-byte aligned."""
+    the head dims of :data:`HEAD_DIMS`, keys 16-byte aligned."""
     if _on_cpu("rope_align", k, delta):
         return ref.rope_delta_ref(k, delta, theta)
     S, KV, hd = k.shape[-3:]
@@ -123,7 +125,7 @@ def rope_align(k: torch.Tensor, delta: torch.Tensor,
     if d.dtype != torch.int32:
         raise TypeError("delta must be int32")
     d = d.contiguous()
-    if hd not in (32, 64, 128) or D == 0 or A % D:
+    if hd not in HEAD_DIMS or D == 0 or A % D:
         raise ValueError(f"bad rope_align shapes k={tuple(k.shape)} "
                          f"delta={tuple(delta.shape)}")
     if k.data_ptr() % 16:
@@ -180,7 +182,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sk, KV = k.shape[1], k.shape[2]
     if (k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd
             or H % KV or tuple(q_pos.shape) != (B, Sq)
-            or hd not in (32, 64, 128)):
+            or hd not in HEAD_DIMS):
         raise ValueError(f"bad flash_attention shapes q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} q_pos={tuple(q_pos.shape)}")
     if kv_len is not None:
@@ -253,7 +255,7 @@ def flash_prefill_paged(q: torch.Tensor, pool_k: torch.Tensor,
         raise ValueError(f"Sq {Sq} must equal span_len + T = {span_len + T} "
                          f"without q_pos")
     if (pool_v.shape != pool_k.shape or pool_k.shape[3] != hd
-            or page_idx.shape[0] != B or H % KV or hd not in (32, 64, 128)
+            or page_idx.shape[0] != B or H % KV or hd not in HEAD_DIMS
             or not 0 < span_len <= nbh * bt or window < 0):
         raise ValueError(f"bad flash_prefill_paged args q={tuple(q.shape)} "
                          f"pool={tuple(pool_k.shape)} "
@@ -325,15 +327,19 @@ def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
                        span_len: torch.Tensor,
                        tail_k: Optional[torch.Tensor] = None,
                        tail_v: Optional[torch.Tensor] = None,
-                       tail_len: int = 0) -> torch.Tensor:
+                       tail_len: int = 0, window: int = 0) -> torch.Tensor:
     """One query per sequence (q ``[B, H, hd]``) over its pages
     ``page_idx[b]`` of the pools ``[P, bt, KV, hd]`` (the first
     ``span_len[b]`` tokens, int32 on device), then over the first
-    ``tail_len`` rows of the dense tails ``[B, Tp, KV, hd]``."""
+    ``tail_len`` rows of the dense tails ``[B, Tp, KV, hd]``. Page column
+    c sits at position c, tail row t at ``span_len[b] + t`` and the query
+    at ``qpos = span_len[b] + tail_len - 1``: a valid column is allowed
+    iff ``qpos - c < window`` (``window`` 0: unbounded)."""
     if _on_cpu("flash_decode_paged", q, pool_k, pool_v, page_idx,
                span_len, tail_k, tail_v):
         return ref.flash_decode_paged_ref(q, pool_k, pool_v, page_idx,
-                                          span_len, tail_k, tail_v, tail_len)
+                                          span_len, tail_k, tail_v, tail_len,
+                                          window)
     _check("q", q, ndim=3)
     for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
         _check_rows(name, t, q.dtype)
@@ -344,10 +350,10 @@ def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
     if (pool_v.shape != pool_k.shape or pool_k.shape[3] != hd
             or page_idx.shape[0] != B or span_len.shape[0] != B
             or bt != 32 or H % KV or H // KV > 8
-            or hd not in (32, 64, 128)):
-        raise ValueError(f"bad flash_decode_paged shapes q={tuple(q.shape)} "
+            or hd not in HEAD_DIMS or window < 0):
+        raise ValueError(f"bad flash_decode_paged args q={tuple(q.shape)} "
                          f"pool={tuple(pool_k.shape)} "
-                         f"page_idx={tuple(page_idx.shape)}")
+                         f"page_idx={tuple(page_idx.shape)} window={window}")
     Tp = 0
     if tail_k is not None:
         _check_rows("tail_k", tail_k, q.dtype)
@@ -365,6 +371,7 @@ def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
             None if tail_v is None else tail_v.data_ptr(),
             out.data_ptr(), part.data_ptr(), tickets.data_ptr(), B, H, KV,
             hd, bt, nbt, Tp, tail_len if tail_k is not None else 0, S,
+            int(min(window, 2 ** 31 - 1)) or 2 ** 31 - 1,
             1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
     return out
 
@@ -387,7 +394,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sk, KV = k.shape[1], k.shape[2]
     if (k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd
             or kv_len.shape[0] != B or H % KV or H // KV > 8
-            or hd not in (32, 64, 128) or window < 1):
+            or hd not in HEAD_DIMS or window < 1):
         raise ValueError(f"bad flash_decode args q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} kv_len={tuple(kv_len.shape)} "
                          f"window={window}")

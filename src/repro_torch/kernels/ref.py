@@ -244,15 +244,18 @@ def flash_decode_paged_ref(q: torch.Tensor, pool_k: torch.Tensor,
                            span_len: torch.Tensor,
                            tail_k: Optional[torch.Tensor] = None,
                            tail_v: Optional[torch.Tensor] = None,
-                           tail_len: int = 0,
+                           tail_len: int = 0, window: int = 0,
                            scale: Optional[float] = None) -> torch.Tensor:
     """One query per sequence over its page-table KV, then a dense tail.
 
     q ``[B, H, hd]``; pools ``[P, bt, KV, hd]``; ``page_idx`` int
     ``[B, nbt]``; ``span_len`` int ``[B]`` (tokens valid from the pages);
-    tails ``[B, Tp, KV, hd]`` with the first ``tail_len`` rows valid. The
-    query sits after everything valid, so the only mask is validity.
-    Gathers the dense stream the kernel never builds, then attends.
+    tails ``[B, Tp, KV, hd]`` with the first ``tail_len`` rows valid. Page
+    column c sits at position c and tail row t at ``span_len[b] + t``; the
+    query sits after everything valid, at ``qpos = span_len[b] + tail_len
+    - 1``. A valid column at position c is allowed iff ``qpos - c <
+    window`` (``window`` 0: unbounded, as in the JAX kernel). Gathers the
+    dense stream the kernel never builds, then attends.
     """
     B, H, hd = q.shape
     P, bt, KV, _ = pool_k.shape
@@ -261,12 +264,17 @@ def flash_decode_paged_ref(q: torch.Tensor, pool_k: torch.Tensor,
     idx = page_idx.long()
     k = pool_k[idx].reshape(B, nbt * bt, KV, hd)
     v = pool_v[idx].reshape(B, nbt * bt, KV, hd)
-    cols = torch.arange(nbt * bt, device=q.device)
-    valid = cols[None, :] < span_len[:, None]
-    if tail_k is not None and tail_len:
+    span = span_len.long()[:, None]
+    pos = torch.arange(nbt * bt, device=q.device)[None, :].expand(B, -1)
+    valid = pos < span
+    tl = tail_len if tail_k is not None else 0
+    if tl:
         Tp = tail_k.shape[1]
         k = torch.cat([k, tail_k], dim=1)
         v = torch.cat([v, tail_v], dim=1)
-        tvalid = torch.arange(Tp, device=q.device) < tail_len
-        valid = torch.cat([valid, tvalid[None].expand(B, Tp)], dim=1)
+        rows = torch.arange(Tp, device=q.device)[None, :]
+        valid = torch.cat([valid, (rows < tl).expand(B, Tp)], dim=1)
+        pos = torch.cat([pos, span + rows], dim=1)
+    if window:
+        valid = valid & (span + tl - 1 - pos < window)
     return _decode_attend(q, k, v, valid, scale)

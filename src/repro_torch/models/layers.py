@@ -6,7 +6,8 @@ function (activations ``[B, S, ...]``, heads ``[B, S, H, hd]``). All
 attention goes through :func:`attention`, which launches the port's
 flash-attention kernel on a CUDA tensor (``kernels.ops``). The features
 of the served configurations are ported — dense attention with sliding
-windows and per-head q/k RMSNorm (``qk_norm``), and SSM / hybrid layers
+windows and per-head q/k RMSNorm (``qk_norm``), tied embeddings
+(``models.transformer.logits_of``), and SSM / hybrid layers
 (``models.ssm``); :func:`check_supported` raises for the rest.
 """
 from __future__ import annotations
@@ -20,12 +21,10 @@ from repro_torch.kernels.ref import rope_freqs
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for architecture features the port
-    does not implement yet (MoE, logit softcap, tied embeddings, non-text
-    frontends)."""
+    does not implement yet (MoE, logit softcap, non-text frontends)."""
     missing = [name for name, on in (
         ("MoE", cfg.is_moe),
         ("logit softcap", bool(cfg.attn_logit_softcap)),
-        ("tied embeddings", cfg.tie_embeddings),
         ("frontend", cfg.frontend != "none"),
     ) if on]
     if missing:

@@ -125,9 +125,11 @@ def init_params(cfg: ModelConfig, seed: int, device=None) -> dict:
         blocks["mlp"] = {"w_gate": w((L, D, F_)), "w_up": w((L, D, F_)),
                          "w_down": w((L, F_, D), out_scale)}
         blocks["ln2"] = zeros((L, D))
-    return {"embed": w((cfg.vocab_size, D), stacked=False), "blocks": blocks,
-            "final_norm": zeros((D,)),
-            "lm_head": w((D, cfg.vocab_size), stacked=False)}
+    params = {"embed": w((cfg.vocab_size, D), stacked=False),
+              "blocks": blocks, "final_norm": zeros((D,))}
+    if not cfg.tie_embeddings:      # tied: the logits read embed.T
+        params["lm_head"] = w((D, cfg.vocab_size), stacked=False)
+    return params
 
 
 def _to_torch(x, device) -> torch.Tensor:
@@ -218,8 +220,12 @@ def _mix(a_out, s_out, p: dict, cfg: ModelConfig):
 
 
 def logits_of(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """f32 logits of the hidden state: the final norm, then ``lm_head``, or
+    ``embed.T`` with ``cfg.tie_embeddings`` (JAX's ``_logits``), cast to
+    ``h``'s dtype at use."""
     h = rmsnorm(h, params["final_norm"], cfg.rmsnorm_eps)
-    return (h @ params["lm_head"].to(h.dtype)).float()
+    table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (h @ table.to(h.dtype)).float()
 
 
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -461,21 +467,18 @@ def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
     dtype and the residual stream promotes from the first attention on. The new token's K/V is written into page
     ``page_idx[b, length // bt]`` at slot ``length % bt``, IN PLACE in the
     pools (the decode state owns them); attention then reads the first
-    ``length + 1`` tokens of each sequence's pages through the paged
-    decode kernel, which has no window: a window that binds at the pages'
-    length (the layers' own, or ``long_context``'s) raises
-    ``NotImplementedError``. Returns (logits ``[B, V]``, cache with
-    ``length + 1``).
+    ``length + 1`` tokens of each sequence's pages within each layer's
+    window (the layers' own at the pages' length ``nbt * bt``, or
+    ``long_context``'s, as JAX's ``_windows`` gives them) through the
+    paged decode kernel. Returns (logits ``[B, V]``, cache with ``length
+    + 1``).
     """
     check_supported(cfg)
     if cfg.has_ssm or not cfg.has_attention:
         raise ValueError("paged decode carries attention KV only; use "
                          "decode_step for SSM state")
-    max_len = cache["page_idx"].shape[1] * cache["pk"].shape[2]
-    if min(_windows(cfg, max_len, long_context)) < max_len:
-        raise NotImplementedError(
-            f"{cfg.name}: a sliding window binds at {max_len} rows and the "
-            f"paged decode kernel has no window; use decode_step")
+    windows = _windows(cfg, cache["page_idx"].shape[1] * cache["pk"].shape[2],
+                       long_context)
     B = token.shape[0]
     h = params["embed"][token][:, None].to(dtype_of(cfg))
     length = cache["length"]
@@ -500,7 +503,7 @@ def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
         # (a bf16 model over recovered f32 KV), as jnp promotion does
         o = ops.flash_decode_paged(
             q[:, 0].to(torch.promote_types(q.dtype, pk.dtype)).contiguous(),
-            pk[l], pv[l], page_idx, span)
+            pk[l], pv[l], page_idx, span, window=windows[l])
         h = h + out_proj(o[:, None], p["attn"])
         h = h + swiglu_mlp(rmsnorm(h, p["ln2"], cfg.rmsnorm_eps), p["mlp"])
     logits = logits_of(params, cfg, h)[:, 0]

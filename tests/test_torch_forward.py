@@ -187,9 +187,9 @@ def test_long_context_window_restricts_attention():
 
 
 def test_long_context_reaches_decode_and_extend():
-    """The window binds in the dense decode and ``extend`` too, as at the
-    JAX entry points; the paged decode, whose kernel has no window,
-    refuses a binding one."""
+    """The window binds in the dense decode, ``extend`` and the paged
+    decode too, as at the JAX entry points (the paged decode, whose
+    kernel had no window, used to refuse a binding one)."""
     cfg, params, tcfg, tparams = _weights("qwen3-4b", long_context_window=4)
     toks = torch.from_numpy(_tokens(tcfg, seed=6, shape=(2, 16)))
     full, _ = forward(tparams, tcfg, toks, long_context=True)
@@ -204,12 +204,14 @@ def test_long_context_reaches_decode_and_extend():
                                 long_context=True)
         np.testing.assert_allclose(lg.numpy(), full[:, t].numpy(), atol=3e-5,
                                    rtol=1e-4)
-    _, c = prefill(tparams, tcfg, toks[:, :8], max_len=16)
+    _, c = prefill(tparams, tcfg, toks[:, :8], max_len=16, long_context=True)
     L, _, _, KV, hd = c["k"].shape
     paged = {"pk": c["k"].reshape(L, 8, 4, KV, hd),
              "pv": c["v"].reshape(L, 8, 4, KV, hd),
              "page_idx": torch.arange(8, dtype=torch.int32).reshape(2, 4),
              "length": c["length"]}
-    with pytest.raises(NotImplementedError, match="window"):
-        decode_step_paged(tparams, tcfg, toks[:, 8], paged,
-                          long_context=True)
+    for t in range(8, 12):
+        lg, paged = decode_step_paged(tparams, tcfg, toks[:, t], paged,
+                                      long_context=True)
+        np.testing.assert_allclose(lg.numpy(), full[:, t].numpy(), atol=3e-5,
+                                   rtol=1e-4)

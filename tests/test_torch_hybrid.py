@@ -144,22 +144,32 @@ def test_decode_from_an_empty_cache_matches_jax(hymba):
 
 
 def test_paged_decode_refuses_a_binding_window(hymba):
-    """The paged decode kernel has no window: a model whose window binds
-    raises instead of decoding wrongly, and an SSM cache is refused."""
+    """The paged decode kernel used to have no window, and a model whose
+    window binds raised; now it decodes as the dense loop does on the same
+    rows (its window of 64 binds over 96 rows of pages), and an SSM cache
+    is still refused."""
     cfg, params, tcfg, tparams = hymba
     attn_only = tcfg.replace(arch_type="dense", hybrid=False, ssm_state=0)
+    assert min(attn_only.layer_window_sizes(96)) < 96
     p = init_params(attn_only, 0, device="cpu")
     L, KV, hd = attn_only.n_layers, attn_only.n_kv_heads, 32
-    cache = {"pk": torch.zeros(L, 6, 32, KV, hd),
-             "pv": torch.zeros(L, 6, 32, KV, hd),
+    g = torch.Generator().manual_seed(3)
+    kv = torch.randn(2, L, 2, 96, KV, hd, generator=g)
+    kv[..., 90:, :, :] = 0.0                 # rows past length + 1
+    length = torch.full((2,), 89, dtype=torch.int32)
+    cache = {"pk": kv[0].reshape(L, 6, 32, KV, hd).clone(),
+             "pv": kv[1].reshape(L, 6, 32, KV, hd).clone(),
              "page_idx": torch.arange(6, dtype=torch.int32).reshape(2, 3),
-             "length": torch.full((2,), 10, dtype=torch.int32)}
+             "length": length}
+    dense = {"k": kv[0].clone(), "v": kv[1].clone(), "length": length}
     tok = torch.tensor([1, 2], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="window"):
-        decode_step_paged(p, attn_only, tok, dict(cache))
+    got, _ = decode_step_paged(p, attn_only, tok, dict(cache))
+    want, _ = decode_step(p, attn_only, tok, dense)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     logits, _ = decode_step_paged(p, attn_only.replace(sliding_window=96),
                                   tok, dict(cache))
     assert logits.shape == (2, attn_only.vocab_size)
+    assert not torch.allclose(logits, got, atol=1e-4)
     with pytest.raises(ValueError):
         decode_step_paged(tparams, tcfg, tok, dict(cache))
 
@@ -170,10 +180,12 @@ def test_check_supported_admits_hybrid_and_refuses_the_rest():
     cfg = torch_smoke("hymba-1.5b")
     check_supported(cfg)
     check_supported(cfg.replace(hybrid=False, arch_type="ssm"))
-    # qk_norm is ported (layers.project_qkv); the rest still refuses
+    # qk_norm (layers.project_qkv) and tied embeddings
+    # (transformer.logits_of) are ported; the rest still refuses
     check_supported(cfg.replace(qk_norm=True))
+    check_supported(cfg.replace(tie_embeddings=True))
     for bad in (dict(n_experts=4, top_k=2), dict(attn_logit_softcap=30.0),
-                dict(tie_embeddings=True), dict(frontend="audio")):
+                dict(frontend="audio")):
         with pytest.raises(NotImplementedError):
             check_supported(cfg.replace(**bad))
 

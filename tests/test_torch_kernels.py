@@ -276,6 +276,66 @@ def test_flash_decode_paged_plain_matches_jax():
                                        atol=2e-5, rtol=0)
 
 
+def _gathered(pk, pv, page_idx, span, tk, tv, tail_len):
+    """Each sequence's valid rows in position order (pages, then the
+    tail) as a dense cache, zero past them, and their count."""
+    B, nbt = page_idx.shape
+    P, bt, KV, hd = pk.shape
+    Tp = tk.shape[1] if tk is not None else 0
+    kd = torch.zeros(B, nbt * bt + Tp, KV, hd, dtype=pk.dtype)
+    vd = torch.zeros_like(kd)
+    for b in range(B):
+        n = int(span[b])
+        rows = page_idx[b].long()
+        kd[b, :n] = pk[rows].reshape(-1, KV, hd)[:n]
+        vd[b, :n] = pv[rows].reshape(-1, KV, hd)[:n]
+        if tail_len:
+            kd[b, n:n + tail_len] = tk[b, :tail_len]
+            vd[b, n:n + tail_len] = tv[b, :tail_len]
+    return kd, vd, (span + tail_len).to(torch.int32)
+
+
+@pytest.mark.parametrize("window", [1, 31, 64, 100, 0])
+@pytest.mark.parametrize("tail_len", [0, 40])
+def test_flash_decode_paged_plain_window_matches_dense_on_gathered_rows(
+        window, tail_len):
+    """The windowed paged plain version against the dense one on the same
+    rows gathered in position order (a page column c at c, a tail row t
+    at ``span + t``, the query at ``span + tail_len - 1``), and against
+    the JAX paged-decode reference with the same window, per sequence:
+    ragged spans of 1, 70 and 160 rows, windows that bind on every
+    sequence, on some, and not at all (0)."""
+    r = _rng(17 + window)
+    B, H, KV, hd, bt, P, nbt, Tp = 3, 8, 2, 32, 32, 24, 5, 64
+    q = _t(r.normal(size=(B, H, hd)).astype(np.float32))
+    pk, pv = (_t(r.normal(size=(P, bt, KV, hd)).astype(np.float32))
+              for _ in range(2))
+    page_idx = _t(r.permutation(P)[: B * nbt].reshape(B, nbt)
+                  .astype(np.int32))
+    span = _t(np.array([1, 70, nbt * bt], np.int32))
+    tk, tv = (_t(r.normal(size=(B, Tp, KV, hd)).astype(np.float32))
+              for _ in range(2))
+    tail = (tk, tv, tail_len) if tail_len else ()
+    got = ref.flash_decode_paged_ref(q, pk, pv, page_idx, span, *tail,
+                                     window=window)
+    kd, vd, kv_len = _gathered(pk, pv, page_idx, span, tk, tv, tail_len)
+    want = ref.flash_decode_ref(q, kd, vd, kv_len, window or kd.shape[1])
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    if window:       # the window changes the answer where it binds
+        full = ref.flash_decode_paged_ref(q, pk, pv, page_idx, span, *tail)
+        assert not torch.allclose(got[-1], full[-1], atol=1e-4)
+    for b in range(B):
+        nbh = -(-int(span[b]) // bt)
+        exp = jref.flash_decode_paged_ref(
+            jnp.asarray(q[b].numpy()[:, None]), jnp.asarray(pk.numpy()),
+            jnp.asarray(pv.numpy()), jnp.asarray(page_idx[b, :nbh].numpy()),
+            jnp.asarray(tk[b, :tail_len].numpy()) if tail_len else None,
+            jnp.asarray(tv[b, :tail_len].numpy()) if tail_len else None,
+            span_len=int(span[b]), window=window)
+        np.testing.assert_allclose(got[b].numpy(), np.asarray(exp)[:, 0],
+                                   atol=2e-5, rtol=0)
+
+
 # ----------------------------------------------------- dispatch contract
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.reset_launches()
@@ -310,7 +370,7 @@ GPU_DTYPES = [torch.float32, torch.bfloat16]
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", GPU_DTYPES)
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("lead,S,KV,D", [
     ((28,), 544, 4, 1),          # the shared blocks' call
     ((8, 28), 32, 4, 8),         # the decode tails' call
@@ -474,8 +534,11 @@ def _shifted(x):
 
 
 # head dims x GQA groups of the tensor-core path's edge tests: the hd 32,
-# 64 and 128 fragments, G 1 (H == KV), 5 (Hymba-1.5B), 7 (Qwen2.5-7B) and 8
-EDGE_HEADS = [(hd, G) for hd in (32, 64, 128) for G in (1, 5, 7, 8)]
+# 64 and 128 fragments, G 1 (H == KV), 5 (Hymba-1.5B), 7 (Qwen2.5-7B) and
+# 8; hd 256 (two warps a row group, Q in shared memory in both types) at
+# G 1, 2 (Gemma3-12B), 4 (Gemma3-1B) and 8
+EDGE_HEADS = [(hd, G) for hd in (32, 64, 128) for G in (1, 5, 7, 8)] + \
+    [(256, G) for G in (1, 2, 4, 8)]
 
 
 @pytest.mark.gpu
@@ -551,7 +614,7 @@ def test_gpu_flash_decode_paged(cuda, dtype, H, KV, hd):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", GPU_DTYPES)
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("G", [1, 5, 7, 8])
 @pytest.mark.parametrize("B", [1, 64])
 def test_gpu_flash_decode_paged_split_tails(cuda, dtype, hd, G, B):
@@ -592,6 +655,62 @@ def test_gpu_flash_decode_paged_split_tails(cuda, dtype, hd, G, B):
                 assert torch.equal(ops.flash_decode(q, kd.contiguous(),
                                                     vd.contiguous(), kl,
                                                     kd.shape[1]), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_DTYPES)
+@pytest.mark.parametrize("hd", [32, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_gpu_flash_decode_paged_window(cuda, dtype, hd, G):
+    """The paged decode kernel's window: spans of whole pages (1, 3, 17
+    and 18 of 32 rows), tails of 0, 1 and 45 rows, windows of 1, 31, 32,
+    33, 100 and 1024 (so the first allowed row opens, cuts and closes a
+    page, and lies in the tail or in the pages) and none. Each call is held
+    to its plain version and twice bit-equal, and equals the dense decode
+    kernel bit for bit on the same rows under the same window: its first
+    tile and its splits are the dense kernel's. A ragged span (page 3 cut
+    by 5) is held to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(hd * G + 7)
+    KV, nbt, Tp, B = 2, 18, 64, 4
+    H = G * KV
+    P = B * nbt + 5
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+
+    q, pk, pv = rnd(B, H, hd), rnd(P, 32, KV, hd), rnd(P, 32, KV, hd)
+    tk, tv = rnd(B, Tp, KV, hd), rnd(B, Tp, KV, hd)
+    pidx = torch.randperm(P, generator=g, device=cuda)[: B * nbt].reshape(
+        B, nbt).to(torch.int32).contiguous()
+    pages = torch.tensor([1, 3, 17, 18], device=cuda, dtype=torch.int32)
+    span = pages * 32
+    kd = torch.zeros(B, nbt * 32 + Tp, KV, hd, device=cuda, dtype=dtype)
+    vd = torch.zeros_like(kd)
+    for tail_len in (0, 1, 45):
+        for b in range(B):
+            n = int(span[b])
+            kd[b, :n] = pk[pidx[b].long()].reshape(-1, KV, hd)[:n]
+            vd[b, :n] = pv[pidx[b].long()].reshape(-1, KV, hd)[:n]
+            kd[b, n:n + tail_len] = tk[b, :tail_len]
+            vd[b, n:n + tail_len] = tv[b, :tail_len]
+        kl = (span + tail_len).to(torch.int32)
+        for window in (1, 31, 32, 33, 100, 1024, 0):
+            args = (q, pk, pv, pidx, span, tk, tv, tail_len)
+            got = ops.flash_decode_paged(*args, window=window)
+            assert torch.equal(ops.flash_decode_paged(*args, window=window),
+                               got), (tail_len, window, "two calls differ")
+            _held(got, ref.flash_decode_paged_ref(*args, window=window),
+                  dtype, f"flash_decode_paged window {window} tail "
+                  f"{tail_len} hd {hd} G {G}")
+            assert torch.equal(got, ops.flash_decode(
+                q, kd, vd, kl, window or kd.shape[1])), \
+                (tail_len, window, "paged != dense")
+    rag = span - torch.tensor([0, 5, 5, 0], device=cuda, dtype=torch.int32)
+    for window in (33, 100):
+        args = (q, pk, pv, pidx, rag, tk, tv, 45)
+        _held(ops.flash_decode_paged(*args, window=window),
+              ref.flash_decode_paged_ref(*args, window=window), dtype,
+              f"flash_decode_paged ragged window {window} hd {hd} G {G}")
 
 
 RESTORE_CASES = {          # mirror diff counts, padded diff rows, shifted
@@ -1098,20 +1217,22 @@ def test_incremental_restore_reproduces_bench_artifact():
 # (H, KV, hd) of Qwen2.5-14B (G 5), Qwen3-4B (G 4) and Qwen2-72B (G 8, the
 # decode kernels' largest group), all at head dim 128
 QWEN_LAYOUTS = [(40, 8, 128), (32, 8, 128), (64, 8, 128)]
+GEMMA_LAYOUTS = [(4, 1, 256), (16, 8, 256)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", GPU_DTYPES)
-@pytest.mark.parametrize("H,KV,hd", QWEN_LAYOUTS)
+@pytest.mark.parametrize("H,KV,hd", QWEN_LAYOUTS + GEMMA_LAYOUTS)
 def test_gpu_attention_kernels_at_qwen_head_layouts(cuda, dtype, H, KV, hd):
-    """The four attention kernels at the serving paths' new layouts, each
-    against its plain version at the card's tolerance and twice for the
-    same bits: ``flash_attention`` causal (S 150) and at selected query
-    positions with a ragged ``kv_len``; ``flash_prefill_paged`` over 5
-    pages of 32 (half aliased) and a 32-row tail, bit-equal to the dense
-    kernel on the gathered rows; ``flash_decode_paged`` over 18 pages of
-    32 with ragged spans, and ``flash_decode`` on the same rows bit-equal
-    to it, with and without a binding window."""
+    """The four attention kernels at the serving paths' new layouts (the
+    Qwen family's, and Gemma3's at head dim 256), each against its plain
+    version at the card's tolerance and twice for the same bits:
+    ``flash_attention`` causal (S 150) and at selected query positions
+    with a ragged ``kv_len``; ``flash_prefill_paged`` over 5 pages of 32
+    (half aliased) and a 32-row tail, bit-equal to the dense kernel on the
+    gathered rows; ``flash_decode_paged`` over 18 pages of 32 with ragged
+    spans, and ``flash_decode`` on the same rows bit-equal to it, with and
+    without a binding window."""
     g = torch.Generator(device=cuda).manual_seed(H + KV)
     B, S = 2, 150
 
@@ -1181,3 +1302,7 @@ def test_gpu_attention_kernels_at_qwen_head_layouts(cuda, dtype, H, KV, hd):
                 "flash_decode window")
     _held(win, ref.flash_decode_ref(qd, kk, vv, lens, 100), dtype,
           f"flash_decode window {H}/{KV}")
+    paged_win = twice(lambda: ops.flash_decode_paged(qd, dpk, dpv, didx, lens,
+                                                     window=100),
+                      "flash_decode_paged window")
+    assert torch.equal(paged_win, win), "windowed dense != paged decode"

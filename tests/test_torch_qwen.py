@@ -32,7 +32,7 @@ from repro_torch.serving import ServingEngine as TorchEngine
 torch.set_num_threads(1)
 
 PORTED = ["qwen2.5-7b", "qwen2.5-14b", "qwen2-72b", "qwen3-4b",
-          "hymba-1.5b"]
+          "hymba-1.5b", "gemma3-1b", "gemma3-12b"]
 B, S, BT = 2, 64, 32
 
 
@@ -117,14 +117,27 @@ def test_init_params_has_the_jax_leaves(arch):
                 assert not t.any()
 
 
-def test_from_jax_keeps_the_qk_norm_leaves(qwen3):
-    cfg, params, tcfg, tparams = qwen3
+def _check_from_jax(cfg, params, tcfg, tparams):
+    """Every leaf of JAX's pytree, and no other: the ``q_norm``/``k_norm``
+    leaves as they were, and no ``lm_head`` where the embeddings are
+    tied."""
     assert cfg.qk_norm and tcfg.qk_norm
+    assert sorted(_flat(tparams)) == sorted(_flat(params))
+    assert ("lm_head" in tparams) == (not tcfg.tie_embeddings)
     for leaf in ("q_norm", "k_norm"):
         np.testing.assert_array_equal(
             tparams["blocks"]["attn"][leaf].numpy(),
             np.asarray(params["blocks"]["attn"][leaf]))
         assert tparams["blocks"]["attn"][leaf].abs().sum() > 0
+
+
+def test_from_jax_keeps_the_qk_norm_leaves(qwen3):
+    _check_from_jax(*qwen3)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "gemma3-12b"])
+def test_from_jax_carries_the_tied_pytree(arch):
+    _check_from_jax(*_weights(arch))
 
 
 # ------------------------------------------------- qk_norm, entry points
