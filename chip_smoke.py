@@ -107,6 +107,35 @@ Phases (each prints its lines; any failure exits non-zero):
      and ``flash_prefill_paged`` (span 1491 in pages, a tail of 45)
      bit-equal to each other, each against its plain version and twice
      for the same bits, timed at 12B's heads in f32;
+  12d. [grok-1-314b] Grok-1 at its published widths (48 query heads over
+     8, G 6, 8 experts top 2, logit softcap 30) with the depth cut to 4 of
+     64 layers, as [qwen2.5-14b] (two layers fresh, two selective in the
+     recovery), timed: every attention call runs a capped kernel instance,
+     held against its capped plain version in bf16 and f32 (no library
+     time: SDPA has no soft cap); then with ``paged_decode=False``:
+     outputs, first-token logits and persistent bytes bit-equal,
+     ``flash_decode`` launched and held capped;
+  12e. [arctic-480b] Arctic (56 over 8, 128 experts, dense residual) cut to
+     2 of 35 layers, served with ``check_layer=0`` (one fresh layer, one
+     selective), its peak memory under the card's;
+  12f. [mamba2-2.7b] Mamba2-2.7B at full width and depth (64 layers, 80
+     SSM heads of 64, state 128): TokenDance falls back to recompute and
+     the dense decode loop; no kernel launched and no plain version run,
+     finite first-token logits, nothing persistent, the prefix policy
+     refused at construction;
+  12g. [musicgen-large] MusicGen-large at full width (48 layers, KV = H =
+     32, G 1, hd 64) served, then ``prefill`` of tokens [8, 224] with
+     seeded audio frontend embeddings [8, 64, 2048] on the first
+     positions: one launch a layer, logits bit-equal to ``forward``'s;
+  12h. [chameleon-34b] Chameleon-34B (64 over 8, ``qk_norm``, vision
+     frontend) cut to 24 of 48 layers, the same way, its peak memory
+     under the card's;
+  12i. [softcap edges] the capped instances with q scaled by 300 (|s| far
+     past the cap of 30): ``flash_prefill_paged`` at the main path's
+     round-2 pool shape (bit-equal to the dense kernel, timed in f32 on
+     a line of its own, not in the kernel table: no path makes these
+     calls), and head dim 256 in ``flash_attention`` and both decode
+     kernels (bit-equal to each other), in bf16 and f32;
   13. [hybrid] Hymba-1.5B at full width (32 layers, bf16, random weights
      from seed 0) served by ``ServingEngine(params, cfg, "tokendance")``
      on the same trace: the engine falls back to the recompute policy and
@@ -125,8 +154,9 @@ Phases (each prints its lines; any failure exits non-zero):
      and SDPA with a mask in both types, and the host time of one call;
   14. the f32 smoke configurations (Qwen2.5-7B with TokenDance and with
      the prefix policy, Hymba-1.5B with its recompute fallback,
-     Qwen2.5-14B, Qwen3-4B, Qwen2-72B, Gemma3-1B and Gemma3-12B with
-     TokenDance) served on the
+     Qwen2.5-14B, Qwen3-4B, Qwen2-72B, Gemma3-1B, Gemma3-12B, Grok-1,
+     Arctic, MusicGen and Chameleon with TokenDance, Mamba2 with its
+     recompute fallback) served on the
      card against the same engine on the CPU: greedy tokens and ledgers
      equal, logits within atol 1e-3;
   15. [restore] the storage walkthrough
@@ -258,12 +288,13 @@ def allowed_cols(q_pos, window, Sk, kv_len=None):
     return torch.clamp(lim - lo, min=0).sum().item()
 
 
-def prefill_times(timer, q, k, v, q_pos, window, kv_len=None):
+def prefill_times(timer, q, k, v, q_pos, window, kv_len=None, softcap=0.0):
     """CUDA-event times of ``ops.flash_attention``, its plain version and
     SDPA (GQA; ``is_causal`` for a plain causal prefill, else a boolean
     mask of the allowed pairs) on one call's inputs, and its bound: each
     input read once, the output written once, and the two products over
-    the allowed pairs at the input type's peak."""
+    the allowed pairs at the input type's peak. A capped call (``softcap``
+    > 0) has no library time: SDPA has no soft cap."""
     from repro_torch.kernels import ops, ref
 
     B, Sq, H, hd = q.shape
@@ -292,10 +323,13 @@ def prefill_times(timer, q, k, v, q_pos, window, kv_len=None):
     bms, by = bound(n_bytes, flops, q.dtype, split_tf32=True)
     return dict(
         ms=timer(lambda: ops.flash_attention(q, k, v, q_pos=q_pos,
-                                             window=window, kv_len=kv_len)),
+                                             window=window, kv_len=kv_len,
+                                             softcap=softcap)),
         plain_ms=timer(lambda: ref.flash_attention_ref(
-            q, k, v, q_pos=q_pos, window=window, kv_len=kv_len)),
-        library_ms=timer(library), bound_ms=bms, bound_by=by,
+            q, k, v, q_pos=q_pos, window=window, kv_len=kv_len,
+            softcap=softcap)),
+        library_ms=None if softcap else timer(library), bound_ms=bms,
+        bound_by=by,
         bound_cuda_core_ms=bound(n_bytes, flops, q.dtype)[0])
 
 
@@ -310,11 +344,12 @@ def sdpa_decode(q, k, v, mask):
 
 def decode_times(timer, kernel, plain, library, n_bytes, flops, dtype):
     """CUDA-event times of a decode kernel, its plain version and the
-    library call, its bound, and the host time of one wrapper call."""
+    library call (None for a capped call: SDPA has no soft cap), its
+    bound, and the host time of one wrapper call."""
     bms, by = bound(n_bytes, flops, dtype)
     return dict(ms=timer(kernel), plain_ms=timer(plain),
-                library_ms=timer(library), bound_ms=bms, bound_by=by,
-                host_us=timer.host_us(kernel))
+                library_ms=None if library is None else timer(library),
+                bound_ms=bms, bound_by=by, host_us=timer.host_us(kernel))
 
 
 def times_line(t):
@@ -322,9 +357,10 @@ def times_line(t):
     core = ""
     if t.get("bound_cuda_core_ms", t["bound_ms"]) != t["bound_ms"]:
         core = f" (CUDA cores {t['bound_cuda_core_ms']:.4f})"
-    return (f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, SDPA "
-            f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} by "
-            f"{t['bound_by']}{core}{host})")
+    lib = ("none: SDPA has no softcap" if t["library_ms"] is None else
+           f"{t['library_ms']:.4f}")
+    return (f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, SDPA {lib}, "
+            f"bound {t['bound_ms']:.4f} by {t['bound_by']}{core}{host})")
 
 
 def check(name, got, want, dtype, equal_nan=False):
@@ -1288,14 +1324,14 @@ def forward_phase(dev, qwen):
     say(f"[forward] phase {time.perf_counter() - t_phase:.1f} s")
 
 
-def serve_model(dev, arch, n_layers=None):
+def serve_model(dev, arch, n_layers=None, engine_kw=None):
     """One config at its published widths (``n_layers`` cuts the depth),
     bf16 weights random from seed 0, served by ``ServingEngine(params,
-    cfg)`` with its defaults on the main path's trace; counts zeroed
-    before and read after. Each round says whether a sliding window binds
-    at its cache length (prompt + generation). Returns the weights, the
-    stats, the launches, the Recorder and the rounds whose window
-    binds."""
+    cfg)`` with its defaults (and ``engine_kw``) on the main path's trace;
+    counts zeroed before and read after. Each round says whether a
+    sliding window binds at its cache length (prompt + generation).
+    Returns the weights, the stats, the launches, the Recorder and the
+    rounds whose window binds."""
     from repro_torch.configs import get_config
     from repro_torch.core.rounds import generate_trace
     from repro_torch.kernels import ops
@@ -1315,7 +1351,11 @@ def serve_model(dev, arch, n_layers=None):
         f"{cfg.n_kv_heads} (G {cfg.n_heads // cfg.n_kv_heads}), head_dim "
         f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
         f", qk_norm {cfg.qk_norm}, attn_bias {cfg.attn_bias}, tied "
-        f"embeddings {cfg.tie_embeddings}, window "
+        f"embeddings {cfg.tie_embeddings}, experts "
+        f"{cfg.n_experts or 'none'} (top {cfg.top_k}, capacity factor "
+        f"{cfg.capacity_factor}, dense residual {cfg.dense_residual}), "
+        f"logit softcap {cfg.attn_logit_softcap or 'none'}, frontend "
+        f"{cfg.frontend}, window "
         f"{cfg.sliding_window or 'none'} (every "
         f"{cfg.global_layer_interval or '-'}th layer global), "
         f"{cfg.dtype}, ~{cfg.param_count() / 1e9:.2f} B params served")
@@ -1328,10 +1368,11 @@ def serve_model(dev, arch, n_layers=None):
         f"weights {gib(weights):.2f} GiB")
     trace = generate_trace("agent_society", 8, 3, cfg.vocab_size, seed=0,
                            jitter_hist=False)
-    engine = ServingEngine(params, cfg, keep_logits=True)
+    engine = ServingEngine(params, cfg, keep_logits=True, **(engine_kw or {}))
     torch.cuda.reset_peak_memory_stats()
     stats, launches, rec = serve_phase(tag, engine, trace, ops)
     peak = torch.cuda.max_memory_allocated()
+    assert peak < torch.cuda.get_device_properties(0).total_memory
     n = len(trace.agent_ids)
     binds = []
     for st in stats:
@@ -1359,7 +1400,8 @@ def serve_model(dev, arch, n_layers=None):
     assert not missing, f"kernels never launched on {tag}'s path: {missing}"
     say(f"[{tag}] flash_prefill launches by call: {rec.split}; rope_align "
         f"by call: {rec.rope_split}; peak device memory {gib(peak):.2f} "
-        f"GiB (weights {gib(weights):.2f})")
+        f"GiB (weights {gib(weights):.2f}) of the card's "
+        f"{gib(torch.cuda.get_device_properties(0).total_memory):.2f}")
     del engine
     return dict(params=params, cfg=cfg, trace=trace, stats=stats,
                 launches=launches, rec=rec, peak=peak, weights=weights,
@@ -1392,23 +1434,30 @@ def hold_kernels(tag, dev, served, timed):
 
     def attn(key):
         _, (q, k, v), kw = kept[key]
-        return q, k, v, kw["q_pos"], kw["window"], kw.get("kv_len")
+        return (q, k, v, kw["q_pos"], kw["window"], kw.get("kv_len"),
+                kw.get("softcap", 0.0))
 
+    cap = served["cfg"].attn_logit_softcap
     for key, call in (("flash_attention", "fresh"),
                       ("flash_attention_selected", "selective"),
                       ("flash_attention_bf16", "round 0")):
         if key not in kept:       # no selective layer under check_layer
             assert served["cfg"].n_layers <= 2, (tag, key)
             continue
-        q, k, v, q_pos, window, kv_len = attn(key)
+        q, k, v, q_pos, window, kv_len, softcap = attn(key)
+        # the path's calls carry the config's cap (the capped instance)
+        assert softcap == cap, (tag, key, softcap, cap)
         both(f"flash_prefill:{call}",
              lambda q, k, v: ops.flash_attention(q, k, v, q_pos=q_pos,
                                                  window=window,
-                                                 kv_len=kv_len),
+                                                 kv_len=kv_len,
+                                                 softcap=softcap),
              lambda q, k, v: ref.flash_attention_ref(
-                 q, k, v, q_pos=q_pos, window=window, kv_len=kv_len),
+                 q, k, v, q_pos=q_pos, window=window, kv_len=kv_len,
+                 softcap=softcap),
              (q, k, v), twice=True)
-        say(f"[{tag}] flash_prefill {call}: q {list(q.shape)} over "
+        capped = f" capped at {softcap}" if softcap else ""
+        say(f"[{tag}] flash_prefill {call}{capped}: q {list(q.shape)} over "
             f"{k.shape[1]} rows ({q.dtype} on the path), max abs err "
             f"{errs[(f'flash_prefill:{call}', torch.bfloat16)]:.3g} (bf16) / "
             f"{errs[(f'flash_prefill:{call}', torch.float32)]:.3g} (f32)")
@@ -1417,7 +1466,7 @@ def hold_kernels(tag, dev, served, timed):
             # 0's prefill in the model's type
             dt = q.dtype if call == "round 0" else torch.float32
             t = prefill_times(timer, q.to(dt), k.to(dt), v.to(dt), q_pos,
-                              window, kv_len)
+                              window, kv_len, softcap)
             say(f"[kernel] flash_prefill, {tag} {call} call, {dt}: "
                 f"{times_line(t)}")
             rows.append(dict(
@@ -1430,15 +1479,20 @@ def hold_kernels(tag, dev, served, timed):
                 max_abs_err_f32=errs[(f"flash_prefill:{call}",
                                       torch.float32)], **t))
 
-    _, args, _ = kept["flash_decode_paged"]
+    _, args, kw = kept["flash_decode_paged"]
     q, pk, pv, pidx, span = args[:5]
-    both("flash_decode_paged", ops.flash_decode_paged,
-         ref.flash_decode_paged_ref, (q, pk, pv, pidx, span), twice=True)
+    dkw = dict(window=kw.get("window", 0), softcap=kw.get("softcap", 0.0))
+    assert dkw["softcap"] == cap, (tag, dkw, cap)
+    both("flash_decode_paged",
+         lambda *a: ops.flash_decode_paged(*a, **dkw),
+         lambda *a: ref.flash_decode_paged_ref(*a, **dkw),
+         (q, pk, pv, pidx, span), twice=True)
     B, H, hd = q.shape
     bt, KV = pk.shape[1], pk.shape[2]
     nbt = pidx.shape[1]
     say(f"[{tag}] flash_decode_paged: q {list(q.shape)} (G {H // KV}) over "
-        f"{nbt} pages of {bt}, span {span.tolist()}, max abs err "
+        f"{nbt} pages of {bt}, span {span.tolist()}"
+        f"{f', capped at {cap}' if cap else ''}, max abs err "
         f"{errs[('flash_decode_paged', torch.bfloat16)]:.3g} (bf16) / "
         f"{errs[('flash_decode_paged', torch.float32)]:.3g} (f32); two "
         f"calls bit-equal")
@@ -1449,9 +1503,9 @@ def hold_kernels(tag, dev, served, timed):
         kd = a[1][pidx.long()].reshape(B, nbt * bt, KV, hd)
         vd = a[2][pidx.long()].reshape(B, nbt * bt, KV, hd)
         t = decode_times(
-            timer, lambda: ops.flash_decode_paged(*a),
-            lambda: ref.flash_decode_paged_ref(*a),
-            sdpa_decode(a[0], kd, vd, mask),
+            timer, lambda: ops.flash_decode_paged(*a, **dkw),
+            lambda: ref.flash_decode_paged_ref(*a, **dkw),
+            None if cap else sdpa_decode(a[0], kd, vd, mask),
             nbytes(a[0], pidx, span) + nbytes(a[0])
             + 2 * cols * KV * hd * 4, 4 * hd * H * cols, torch.float32)
         del kd, vd
@@ -1522,14 +1576,16 @@ def dense_decode_row(tag, dev, kept, launches):
     the path's type; its kernel-table row."""
     from repro_torch.kernels import ops, ref
 
-    _, (q, k, v, kv_len, window), _ = kept
+    _, (q, k, v, kv_len, window), kw = kept
+    c = kw.get("softcap", 0.0)
     errs = {}
     for dt in (torch.bfloat16, torch.float32):
         qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
-        got = ops.flash_decode(qq, kk, vv, kv_len, window)
+        got = ops.flash_decode(qq, kk, vv, kv_len, window, softcap=c)
         errs[dt] = check("flash_decode", got, ref.flash_decode_ref(
-            qq, kk, vv, kv_len, window), dt)
-        assert torch.equal(ops.flash_decode(qq, kk, vv, kv_len, window),
+            qq, kk, vv, kv_len, window, softcap=c), dt)
+        assert torch.equal(ops.flash_decode(qq, kk, vv, kv_len, window,
+                                            softcap=c),
                            got), (tag, dt, "two calls differ")
     B, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -1538,15 +1594,17 @@ def dense_decode_row(tag, dev, kept, launches):
     mask = (cols[None] < kl) & (kl - 1 - cols[None] < window)
     n = int(mask.sum().item())
     t = decode_times(Timer(dev), lambda: ops.flash_decode(q, k, v, kv_len,
-                                                          window),
-                     lambda: ref.flash_decode_ref(q, k, v, kv_len, window),
-                     sdpa_decode(q, k, v, mask),
+                                                          window, softcap=c),
+                     lambda: ref.flash_decode_ref(q, k, v, kv_len, window,
+                                                  softcap=c),
+                     None if c else sdpa_decode(q, k, v, mask),
                      nbytes(q, kv_len) + nbytes(q)
                      + 2 * n * KV * hd * k.element_size(), 4 * hd * H * n,
                      q.dtype)
     say(f"[kernel] flash_decode, {tag} dense loop's call, q {list(q.shape)} "
         f"over {list(k.shape)}, kv_len {kv_len.tolist()}, window {window}, "
-        f"{q.dtype}: {times_line(t)}, max abs err "
+        f"{f'capped at {c}, ' if c else ''}{q.dtype}: {times_line(t)}, "
+        f"max abs err "
         f"{errs[torch.bfloat16]:.3g} (bf16) / {errs[torch.float32]:.3g} "
         f"(f32); two calls bit-equal")
     return dict(name="flash_decode", call=f"{tag} dense",
@@ -1686,23 +1744,28 @@ def gemma_edges(dev):
 
 
 def model_phase(dev, arch, n_layers=None, timed=True, dense=False,
-                binds=None):
-    """[<arch>]: serve, hold the path's kernels at its head layout, with
-    ``dense`` serve again through the dense decode loop on the same
-    weights (bit-equal), then free the weights. ``binds``: the rounds in
-    which a sliding window must bind. Returns the kernel-table rows."""
+                binds=None, engine_kw=None, embeds=False):
+    """[<arch>]: serve (``engine_kw``: engine arguments), hold the path's
+    kernels at its head layout, with ``dense`` serve again through the
+    dense decode loop on the same weights (bit-equal), with ``embeds``
+    run ``frontend_prefill``, then free the weights. ``binds``: the
+    rounds in which a sliding window must bind. Returns the kernel-table
+    rows."""
     from repro_torch.kernels import ops
     from repro_torch.serving import ServingEngine
 
     t_phase = time.perf_counter()
-    served = serve_model(dev, arch, n_layers)
+    served = serve_model(dev, arch, n_layers, engine_kw)
     tag = served["cfg"].name
     if binds is not None:
         assert served["binds"] == binds, (tag, served["binds"], binds)
     rows = hold_kernels(tag, dev, served, timed)
+    if embeds:
+        frontend_prefill(tag, dev, served)
     if dense:
         engine = ServingEngine(served["params"], served["cfg"],
-                               paged_decode=False, keep_logits=True)
+                               paged_decode=False, keep_logits=True,
+                               **(engine_kw or {}))
         other, dl, drec = serve_phase(f"{tag} dense", engine,
                                       served["trace"], ops)
         del engine
@@ -1718,6 +1781,216 @@ def model_phase(dev, arch, n_layers=None, timed=True, dense=False,
     freed(tag, before, weights)
     say(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s")
     return rows
+
+
+def frontend_prefill(tag, dev, served, n_embeds=64):
+    """A model with a stubbed frontend on its embedding path: ``prefill``
+    of tokens [8, 224] whose first ``n_embeds`` positions take seeded
+    frontend embeddings [8, n_embeds, D] (counts zeroed before, read
+    after: one ``flash_prefill`` launch a layer, no plain version);
+    finite logits of the expected shape, other than the tokens-only
+    prefill's, and bit-equal to ``forward``'s on the same inputs (one
+    layer loop)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward, prefill
+
+    params, cfg = served["params"], served["cfg"]
+    g = torch.Generator(device=dev).manual_seed(23)
+    B, S = 8, 224
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device=dev)
+    emb = torch.randn(B, n_embeds, cfg.d_model, generator=g,
+                      device=dev).to(torch.bfloat16)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, tokens, frontend_embeds=emb)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+    assert launches["flash_prefill"] == cfg.n_layers, launches
+    assert not any(plain.values()), plain
+    assert logits.shape == (B, S, cfg.vocab_size), logits.shape
+    assert bool(logits.isfinite().all()), tag
+    assert cache["k"].shape[:3] == (cfg.n_layers, B, S), cache["k"].shape
+    del cache
+    plain_logits, _ = prefill(params, cfg, tokens)
+    assert not torch.equal(plain_logits, logits), "the embeddings were lost"
+    del plain_logits
+    fl, _ = forward(params, cfg, tokens, frontend_embeds=emb)
+    assert torch.equal(fl, logits), "forward != prefill with embeds"
+    del fl, logits
+    say(f"[{tag}] prefill with {cfg.frontend} frontend embeddings "
+        f"[{B}, {n_embeds}, {cfg.d_model}] (seed 23) over tokens [{B}, "
+        f"{S}]: {launches['flash_prefill']} flash_prefill launches, no "
+        f"plain version, finite logits bit-equal to forward's and other "
+        f"than the tokens-only prefill's; {ms:.1f} ms (host clock)")
+
+
+def ssm_phase(dev):
+    """[mamba2-2.7b]: the attention-free model at full width and depth
+    (64 layers, bf16, seed 0) through ``ServingEngine(params, cfg)``:
+    TokenDance falls back to the recompute policy and the dense decode
+    loop; counts zeroed before and read after — no kernel launched (no
+    attention, no KV to align, compress or restore) and no plain version
+    run; finite first-token logits; the prefix policy refused at
+    construction; the peak memory (the SSD chunk tensors at 80 heads of
+    64, state 128); the weights freed."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.rounds import generate_trace
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config("mamba2-2.7b")
+    tag = cfg.name
+    say(f"[{tag}] {cfg.n_layers} of {cfg.n_layers} layers (no depth cut), "
+        f"d {cfg.d_model}, no attention, SSM d_inner {cfg.d_inner}, "
+        f"{cfg.ssm_heads} heads of {cfg.ssm_headdim}, state "
+        f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab_size}, "
+        f"tied embeddings {cfg.tie_embeddings}, {cfg.dtype}, "
+        f"~{cfg.param_count() / 1e9:.2f} B params")
+    before = torch.cuda.memory_allocated()
+    params = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - before
+    trace = generate_trace("agent_society", 8, 3, cfg.vocab_size, seed=0,
+                           jitter_hist=False)
+    try:
+        ServingEngine(params, cfg, "prefix")
+    except ValueError as e:
+        say(f"[{tag}] prefix policy refused at construction: {e}")
+    else:
+        raise AssertionError("the prefix policy constructed on an "
+                             "attention-free model")
+    engine = ServingEngine(params, cfg, keep_logits=True)
+    assert engine.policy.name == "recompute", engine.policy.name
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    stats = engine.serve(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    for st in stats:
+        say(f"[{tag}] round {st.round_idx}: prompt {st.prompt_len}, round "
+            f"{st.t_round * 1e3:.1f} ms (recover {st.t_recover * 1e3:.1f}, "
+            f"decode {st.t_decode * 1e3:.1f}, store "
+            f"{st.t_store * 1e3:.1f}), policy {st.mode}, persistent "
+            f"{st.persistent_bytes} B")
+        assert st.outputs.shape == (8, engine.gen_len), st.outputs.shape
+        assert ((st.outputs >= 0) & (st.outputs < cfg.vocab_size)).all()
+        assert np.isfinite(st.first_logits).all(), st.round_idx
+        assert st.first_logits.shape == (8, cfg.vocab_size)
+        assert st.persistent_bytes == 0, st.persistent_bytes
+    say(f"[{tag}] serve {wall:.2f} s; launches {launches}  plain-version "
+        f"calls {plain}; peak device memory {gib(peak):.2f} GiB (weights "
+        f"{gib(weights):.2f})")
+    assert not any(launches.values()), f"kernels launched: {launches}"
+    assert not any(plain.values()), f"plain versions ran: {plain}"
+    del engine, stats, params
+    freed(tag, before + weights, weights)
+    say(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def softcap_edges(dev):
+    """[softcap edges]: the capped instances at shapes Grok's path does
+    not give them, q scaled by 300 so that |s| is far past the cap of 30
+    (the tanh saturates), in bf16 and f32, each against its plain version
+    and twice for the same bits: ``flash_prefill_paged`` at the main
+    path's round-2 pool shape (q [8,256,28,128] over 7 pages of 32 and a
+    32-row tail a sequence, from a pool of 72 pages), bit-equal to the
+    dense kernel on the gathered rows; head dim 256 (Gemma3-12B's heads,
+    16 over 8) in ``flash_attention`` (S 512, causal) and in both decode
+    kernels (Sk 1024, ragged lengths, bit-equal to each other). The
+    capped paged kernel is timed in f32 and said on a ``[kernel]`` line;
+    no path launches these calls, so the kernel table gets no row."""
+    from repro_torch.kernels import ops, ref
+
+    t_phase = time.perf_counter()
+    timer = Timer(dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    c, mult = 30.0, 300.0
+
+    def twice(fn, what):
+        got = fn()
+        assert torch.equal(fn(), got), (what, "two calls differ")
+        return got
+
+    for dt in (torch.bfloat16, torch.float32):
+        def rnd(*shape, m=1.0):
+            return (m * torch.randn(*shape, generator=g, device=dev)).to(dt)
+
+        B, H, KV, hd, bt, nbh, T, P = 8, 28, 4, 128, 32, 7, 32, 72
+        span = nbh * bt
+        q = rnd(B, span + T, H, hd, m=mult)
+        pk, pv = rnd(P, bt, KV, hd), rnd(P, bt, KV, hd)
+        pidx = torch.randperm(P, generator=g, device=dev)[: B * nbh].reshape(
+            B, nbh).to(torch.int32).contiguous()
+        tk, tv = rnd(B, T, KV, hd), rnd(B, T, KV, hd)
+        args = (q, pk, pv, pidx, tk, tv)
+        got = twice(lambda: ops.flash_prefill_paged(*args, span_len=span,
+                                                    softcap=c),
+                    "flash_prefill_paged capped")
+        e_p = check("flash_prefill_paged", got, ref.flash_attention_paged_ref(
+            *args, span_len=span, softcap=c), dt)
+        kd, vd = ref.paged_kv_ref(pk, pv, pidx, tk, tv, span)
+        kd, vd = kd.contiguous(), vd.contiguous()
+        pos = torch.arange(span + T, device=dev, dtype=torch.int32).expand(
+            B, span + T).contiguous()
+        assert torch.equal(got, ops.flash_attention(
+            q, kd, vd, q_pos=pos, window=2 ** 31 - 1, softcap=c)), \
+            "capped paged prefill != dense"
+        if dt == torch.float32:
+            flops = 4 * hd * H * allowed_cols(pos, 2 ** 31 - 1, span + T)
+            n_b = nbytes(*args) + nbytes(q)
+            bms, by = bound(n_b, flops, dt, split_tf32=True)
+            t = dict(ms=timer(lambda: ops.flash_prefill_paged(
+                *args, span_len=span, softcap=c)),
+                plain_ms=timer(lambda: ref.flash_attention_paged_ref(
+                    *args, span_len=span, softcap=c)),
+                library_ms=None, bound_ms=bms, bound_by=by,
+                bound_cuda_core_ms=bound(n_b, flops, dt)[0])
+            say(f"[kernel] flash_prefill_paged capped at {c}, q "
+                f"{list(q.shape)} (x {mult}) over {nbh} pages + {T} tail "
+                f"rows, f32 (softcap edge, on no path): {times_line(t)}, "
+                f"max abs err {e_p:.3g}")
+        del kd, vd
+
+        H, KV, hd, S = 16, 8, 256, 512
+        q, k, v = rnd(2, S, H, hd, m=mult), rnd(2, S, KV, hd), rnd(2, S, KV,
+                                                                   hd)
+        pos = torch.arange(S, device=dev, dtype=torch.int32).expand(
+            2, S).contiguous()
+        got = twice(lambda: ops.flash_attention(q, k, v, q_pos=pos, window=S,
+                                                softcap=c),
+                    "flash_prefill hd 256 capped")
+        e_f = check("flash_prefill", got, ref.flash_attention_ref(
+            q, k, v, q_pos=pos, window=S, softcap=c), dt)
+        Sk = 1024
+        qd, kk, vv = rnd(4, H, hd, m=mult), rnd(4, Sk, KV, hd), rnd(4, Sk, KV,
+                                                                   hd)
+        kl = torch.tensor([Sk, 1, 700, 333], device=dev, dtype=torch.int32)
+        dpk = kk.reshape(4 * Sk // 32, 32, KV, hd)
+        dpv = vv.reshape(4 * Sk // 32, 32, KV, hd)
+        didx = torch.arange(4 * Sk // 32, device=dev, dtype=torch.int32
+                            ).reshape(4, Sk // 32)
+        dense = twice(lambda: ops.flash_decode(qd, kk, vv, kl, Sk, softcap=c),
+                      "flash_decode hd 256 capped")
+        e_d = check("flash_decode", dense, ref.flash_decode_ref(
+            qd, kk, vv, kl, Sk, softcap=c), dt)
+        paged = twice(lambda: ops.flash_decode_paged(qd, dpk, dpv, didx, kl,
+                                                     softcap=c),
+                      "flash_decode_paged hd 256 capped")
+        assert torch.equal(paged, dense), "capped paged decode != dense"
+        say(f"[softcap edges] {dt}, cap {c}, q x {mult}: flash_prefill_paged "
+            f"[8,256,28,128] over the pool max abs err {e_p:.3g} and "
+            f"bit-equal to the dense kernel; hd 256: flash_attention [2,"
+            f"{S},{H},{hd}] {e_f:.3g}, flash_decode (Sk {Sk}, kv_len "
+            f"{kl.tolist()}) {e_d:.3g}, flash_decode_paged bit-equal to "
+            f"it; every call twice bit-equal")
+    say(f"[softcap edges] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 # ------------------------------------------------------------- phase 5
@@ -1978,7 +2251,12 @@ def smoke_parity(dev):
                          ("qwen3-4b", "tokendance"),
                          ("qwen2-72b", "tokendance"),
                          ("gemma3-1b", "tokendance"),
-                         ("gemma3-12b", "tokendance")):
+                         ("gemma3-12b", "tokendance"),
+                         ("grok-1-314b", "tokendance"),
+                         ("arctic-480b", "tokendance"),
+                         ("mamba2-2.7b", "tokendance"),
+                         ("musicgen-large", "tokendance"),
+                         ("chameleon-34b", "tokendance")):
         cfg = get_smoke_config(arch).replace(dtype="float32")
         cpu_params = init_params(cfg, 0, device="cpu")
         gpu_params = to_dev(cpu_params)
@@ -2208,6 +2486,22 @@ def main() -> int:
                                     dense=True, binds=[1, 2]))
     table += table_rows(model_phase(dev, "gemma3-12b", binds=[]))
     gemma_edges(dev)
+    # the last five families: Grok-1 (4 of 64 layers; MoE, every attention
+    # call capped at 30) on both decode loops; Arctic (2 of 35 layers, 128
+    # experts, dense residual) with check_layer 0 so that one layer is
+    # fresh and one selective; Mamba2 (no attention); MusicGen (G 1) and
+    # Chameleon (24 of 48 layers) with frontend embeddings
+    table += table_rows(model_phase(dev, "grok-1-314b", n_layers=4,
+                                    dense=True, binds=[]))
+    table += table_rows(model_phase(dev, "arctic-480b", n_layers=2,
+                                    timed=False, binds=[],
+                                    engine_kw=dict(check_layer=0)))
+    ssm_phase(dev)
+    table += table_rows(model_phase(dev, "musicgen-large", timed=False,
+                                    binds=[], embeds=True))
+    table += table_rows(model_phase(dev, "chameleon-34b", n_layers=24,
+                                    timed=False, binds=[], embeds=True))
+    softcap_edges(dev)
     hlaunches, hkept = hybrid(dev)
     hybrid_prefill(dev, hkept)
     table += table_rows([decode_kernel(dev, hlaunches, hkept,

@@ -1,10 +1,10 @@
 """Model configuration for the PyTorch port (a copy of ``repro.configs.base``
 so the port imports nothing of the JAX package).
 
-The registry holds the architectures the port serves: one module per
-architecture under ``repro_torch.configs`` exposing ``CONFIG`` (the
-published configuration) and ``smoke_config()`` (a reduced same-family
-variant for CPU tests).
+The registry holds every architecture of the JAX package, in its order:
+one module per architecture under ``repro_torch.configs`` exposing
+``CONFIG`` (the published configuration) and ``smoke_config()`` (a
+reduced same-family variant for CPU tests).
 
 The fields are JAX's, ``attn_impl`` / ``attn_chunk`` included: they are
 copied so that a config equals its JAX twin field by field, but the port
@@ -174,15 +174,20 @@ INPUT_SHAPES = {
     "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
 }
 
-# arch id -> module name under repro_torch.configs
+# arch id -> module name under repro_torch.configs (JAX's order)
 ARCH_IDS = {
+    "hymba-1.5b": "hymba_1_5b",
+    "mamba2-2.7b": "mamba2_2_7b",
+    "grok-1-314b": "grok_1_314b",
+    "arctic-480b": "arctic_480b",
+    "musicgen-large": "musicgen_large",
+    "gemma3-12b": "gemma3_12b",
+    "qwen2-72b": "qwen2_72b",
+    "chameleon-34b": "chameleon_34b",
+    "qwen3-4b": "qwen3_4b",
+    "gemma3-1b": "gemma3_1b",
     "qwen2.5-7b": "qwen25_7b",
     "qwen2.5-14b": "qwen25_14b",
-    "qwen2-72b": "qwen2_72b",
-    "qwen3-4b": "qwen3_4b",
-    "hymba-1.5b": "hymba_1_5b",
-    "gemma3-1b": "gemma3_1b",
-    "gemma3-12b": "gemma3_12b",
 }
 
 

@@ -38,11 +38,11 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import (
     apply_rope,
     attention,
+    feed_forward,
     out_proj,
     project_qkv,
     rmsnorm,
     rope_cos_sin,
-    swiglu_mlp,
 )
 from repro_torch.models.transformer import block_full, layer, logits_of
 
@@ -105,17 +105,18 @@ def _selective_block(h_sel, p, cfg, *, sel_pos, cos_sel, sin_sel,
                      k_base, v_base, sel_idx):
     """Recompute one layer at the selected positions only: the selected
     rows' fresh K/V overwrite the (fresh, per-layer) base, then the
-    selected queries attend over the merged KV."""
+    selected queries attend over the merged KV (with the config's logit
+    soft cap); an MoE layer routes the selected rows as groups of their
+    own, as JAX's selective block does."""
     x = rmsnorm(h_sel, p["ln1"], cfg.rmsnorm_eps)
     q, k, v = project_qkv(x, p["attn"], cfg)
     q = apply_rope(q, cos_sel, sin_sel)
     k = apply_rope(k, cos_sel, sin_sel)
     k_merged = _scatter_rows(k_base, k, sel_idx)
     v_merged = _scatter_rows(v_base, v, sel_idx)
-    h_sel = h_sel + out_proj(attention(q, k_merged, v_merged, q_pos=sel_pos,
-                                       window=k_merged.shape[1]), p["attn"])
-    h_sel = h_sel + swiglu_mlp(rmsnorm(h_sel, p["ln2"], cfg.rmsnorm_eps),
-                               p["mlp"])
+    o = attention(q, k_merged, v_merged, q_pos=sel_pos,
+                  window=k_merged.shape[1], softcap=cfg.attn_logit_softcap)
+    h_sel, _ = feed_forward(h_sel + out_proj(o, p["attn"]), p, cfg)
     return h_sel, k_merged, v_merged
 
 

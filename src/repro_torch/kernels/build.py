@@ -42,13 +42,13 @@ SIGNATURES = {
                    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "flash_prefill": ("flash_prefill_launch",
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _F, _I, _P]),
+                       _F, _F, _I, _P]),
     "flash_prefill_paged": ("flash_prefill_paged_launch",
-                            [_P] * 8 + [_I] * 11 + [_F, _I, _P]),
+                            [_P] * 8 + [_I] * 11 + [_F, _F, _I, _P]),
     "flash_decode_paged": ("flash_decode_paged_launch",
-                           [_P] * 10 + [_I] * 10 + [_F, _I, _P]),
+                           [_P] * 10 + [_I] * 10 + [_F, _F, _I, _P]),
     "flash_decode": ("flash_decode_launch",
-                     [_P] * 7 + [_I] * 7 + [_F, _I, _P]),
+                     [_P] * 7 + [_I] * 7 + [_F, _F, _I, _P]),
     "fused_diff_restore": ("fused_diff_restore_launch",
                            [_P] * 10 + [_I] * 8 + [_P]),
     "fused_family_restore": ("fused_family_restore_launch",

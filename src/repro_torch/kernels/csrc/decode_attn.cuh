@@ -7,6 +7,13 @@
 // stays on the CUDA cores in f32 for both element types and the design is
 // about bytes in flight.
 //
+// Logit soft cap (Grok-1; kCap, a template flag the launchers set when
+// the caller's cap c is positive): an allowed scaled score s becomes
+// c * tanhf(s / c) before the running max, as repro/models/layers.py:106
+// computes it, with the accurate tanhf and division (tanh.approx.f32 is
+// ~2^-11 relative: ~0.015 in a logit at c = 30). The uncapped instances
+// compile to the code they had without the flag.
+//
 // Split-KV (flash-decoding). The grid is (KV head, sequence, split). A
 // (KV head, sequence) pair visits tiles [t_begin, t_end); split s walks
 // tiles t_begin + s*kSplitTiles .. t_begin + (s+1)*kSplitTiles - 1, so a
@@ -96,11 +103,11 @@ __host__ __device__ constexpr int n_splits(int ntiles) {
 // empty range writes zeros. part is the scratch of gridDim.z partials of
 // G * (HD + 2) floats per pair; tickets[b * KV + kvh] is 0 at launch and
 // left 0.
-template <typename T, int HD, typename Rows>
+template <typename T, int HD, bool kCap, typename Rows>
 __device__ __forceinline__ void attend(const T* __restrict__ q,
                                        T* __restrict__ out, int b, int kvh,
                                        int H, int KV, float scale,
-                                       int t_begin, int t_end,
+                                       float softcap, int t_begin, int t_end,
                                        const Rows& rows,
                                        float* __restrict__ part,
                                        int* __restrict__ tickets) {
@@ -187,7 +194,12 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
         for (int e = 0; e < kVec; ++e)
           dot += qg[w * kVec + e] * word_elem<T>(kw, e);
       }
-      const float x = rows.valid(t, lane) ? dot * scale : kNegInf;
+      float x;
+      if constexpr (kCap)
+        x = rows.valid(t, lane) ? softcap * tanhf(dot * scale / softcap)
+                                : kNegInf;
+      else
+        x = rows.valid(t, lane) ? dot * scale : kNegInf;
       const float m_new = fmaxf(m, warp_max(x));
       const float p = expf(x - m_new);
       const float sum = warp_sum(p);

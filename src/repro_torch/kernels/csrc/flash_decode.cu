@@ -26,7 +26,9 @@
 // paged decode kernel, so paged == dense holds bit for bit whenever the
 // two see the same rows. Tiles wholly before the window (rows < kv_len -
 // window) or past kv_len are never loaded; masked columns inside a loaded
-// tile score -2^30.
+// tile score -2^30. A positive softcap runs the kCap instance of the
+// kernel (the scores capped as decode_attn.cuh says), softcap 0 the
+// uncapped one.
 #include "decode_attn.cuh"
 
 using decode::kBT;
@@ -61,37 +63,39 @@ struct DenseRows {
 
 }  // namespace
 
-template <typename T, int HD>
+template <typename T, int HD, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ kv_len,
                     T* __restrict__ out, float* __restrict__ part,
                     int* __restrict__ tickets, int H, int KV, int Sk,
-                    int window, float scale) {
+                    int window, float scale, float softcap) {
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int len = max(min(kv_len[b], Sk), 0);
   const long long base = (long long)b * Sk * KV * HD;
   const DenseRows<T, HD> rows{k + base, v + base, KV, kvh, Sk, len, window};
   // first allowed row: kv_len - window (window >= 1)
   const long long lo = max((long long)len - window, 0LL);
-  decode::attend<T, HD>(q, out, b, kvh, H, KV, scale, (int)(lo / kBT),
-                        (len + kBT - 1) / kBT, rows, part, tickets);
+  decode::attend<T, HD, kCap>(q, out, b, kvh, H, KV, scale, softcap,
+                              (int)(lo / kBT), (len + kBT - 1) / kBT, rows,
+                              part, tickets);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kCap>
 static int launch_hd(dim3 grid, const T* q, const T* k, const T* v,
                      const int* kv_len, T* out, float* part, int* tickets,
                      int H, int KV, int Sk, int window, float scale,
-                     cudaStream_t st) {
+                     float softcap, cudaStream_t st) {
   constexpr int smem = decode::smem_bytes<T, HD>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_kernel<T, HD>,
+        flash_decode_kernel<T, HD, kCap>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  flash_decode_kernel<T, HD><<<grid, kThreads, smem, st>>>(
-      q, k, v, kv_len, out, part, tickets, H, KV, Sk, window, scale);
+  flash_decode_kernel<T, HD, kCap><<<grid, kThreads, smem, st>>>(
+      q, k, v, kv_len, out, part, tickets, H, KV, Sk, window, scale,
+      softcap);
   return (int)cudaGetLastError();
 }
 
@@ -99,7 +103,8 @@ template <typename T>
 static int launch_typed(const void* q, const void* k, const void* v,
                         const int* kv_len, void* out, float* part,
                         int* tickets, int B, int H, int KV, int hd, int Sk,
-                        int S, int window, float scale, cudaStream_t st) {
+                        int S, int window, float scale, float softcap,
+                        cudaStream_t st) {
   dim3 grid(KV, B, S);
   const T* qq = (const T*)q;
   const T* kk = (const T*)k;
@@ -108,8 +113,13 @@ static int launch_typed(const void* q, const void* k, const void* v,
   switch (hd) {
 #define DENSE_CASE(d)                                                       \
   case d:                                                                   \
-    return launch_hd<T, d>(grid, qq, kk, vv, kv_len, oo, part, tickets, H,  \
-                           KV, Sk, window, scale, st);
+    return softcap > 0.f                                                    \
+               ? launch_hd<T, d, true>(grid, qq, kk, vv, kv_len, oo, part,  \
+                                       tickets, H, KV, Sk, window, scale,   \
+                                       softcap, st)                         \
+               : launch_hd<T, d, false>(grid, qq, kk, vv, kv_len, oo, part, \
+                                        tickets, H, KV, Sk, window, scale,  \
+                                        softcap, st);
     DENSE_CASE(32)
     DENSE_CASE(64)
     DENSE_CASE(128)
@@ -128,15 +138,16 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                                    void* out, float* part, int* tickets,
                                    int B, int H, int KV, int hd, int Sk,
                                    int S, int window, float scale,
-                                   int dtype, void* stream) {
-  if (H % KV != 0 || H / KV > kMaxG || window < 1 ||
+                                   float softcap, int dtype, void* stream) {
+  if (H % KV != 0 || H / KV > kMaxG || window < 1 || !(softcap >= 0.f) ||
       S < n_splits((Sk + kBT - 1) / kBT))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kF32)
     return launch_typed<float>(q, k, v, kv_len, out, part, tickets, B, H, KV,
-                               hd, Sk, S, window, scale, st);
+                               hd, Sk, S, window, scale, softcap, st);
   return launch_typed<__nv_bfloat16>(q, k, v, kv_len, out, part, tickets, B,
-                                     H, KV, hd, Sk, S, window, scale, st);
+                                     H, KV, hd, Sk, S, window, scale, softcap,
+                                     st);
 }

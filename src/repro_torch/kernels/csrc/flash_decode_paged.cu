@@ -31,7 +31,8 @@
 // one that holds position qpos - window + 1, and splits count from it.
 // Where the span is whole pages, tile t holds positions t*32 .. t*32+31
 // in both kernels, so the first tile, the splits and the masks are the
-// dense kernel's and the two compute the same bits.
+// dense kernel's and the two compute the same bits, capped (softcap > 0,
+// the kCap instance) or not.
 #include "decode_attn.cuh"
 
 using decode::kBT;
@@ -80,7 +81,7 @@ struct PagedRows {
 
 }  // namespace
 
-template <typename T, int HD>
+template <typename T, int HD, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ pk,
                           const T* __restrict__ pv, const int* __restrict__ page_idx,
@@ -88,7 +89,8 @@ flash_decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ pk,
                           const T* __restrict__ tk, const T* __restrict__ tv,
                           T* __restrict__ out, float* __restrict__ part,
                           int* __restrict__ tickets, int H, int KV, int nbt,
-                          int Tp, int tail_len, int window, float scale) {
+                          int Tp, int tail_len, int window, float scale,
+                          float softcap) {
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int span = span_len[b];
   const int npages = min((span + kBT - 1) / kBT, nbt);
@@ -107,26 +109,26 @@ flash_decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ pk,
   const int t_begin = min(lo < span ? (int)(lo / kBT)
                                     : npages + (int)((lo - span) / kBT),
                           t_end);
-  decode::attend<T, HD>(q, out, b, kvh, H, KV, scale, t_begin, t_end, rows,
-                        part, tickets);
+  decode::attend<T, HD, kCap>(q, out, b, kvh, H, KV, scale, softcap, t_begin,
+                              t_end, rows, part, tickets);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kCap>
 static int launch_hd(dim3 grid, const T* q, const T* pk, const T* pv,
                      const int* page_idx, const int* span_len, const T* tk,
                      const T* tv, T* out, float* part, int* tickets, int H,
                      int KV, int nbt, int Tp, int tail_len, int window,
-                     float scale, cudaStream_t st) {
+                     float scale, float softcap, cudaStream_t st) {
   constexpr int smem = decode::smem_bytes<T, HD>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_paged_kernel<T, HD>,
+        flash_decode_paged_kernel<T, HD, kCap>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  flash_decode_paged_kernel<T, HD><<<grid, kThreads, smem, st>>>(
+  flash_decode_paged_kernel<T, HD, kCap><<<grid, kThreads, smem, st>>>(
       q, pk, pv, page_idx, span_len, tk, tv, out, part, tickets, H, KV, nbt,
-      Tp, tail_len, window, scale);
+      Tp, tail_len, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -136,7 +138,8 @@ static int launch_typed(const void* q, const void* pk, const void* pv,
                         const void* tk, const void* tv, void* out,
                         float* part, int* tickets, int B, int H, int KV,
                         int hd, int nbt, int Tp, int tail_len, int S,
-                        int window, float scale, cudaStream_t st) {
+                        int window, float scale, float softcap,
+                        cudaStream_t st) {
   dim3 grid(KV, B, S);
   const T* qq = (const T*)q;
   const T* kk = (const T*)pk;
@@ -147,9 +150,15 @@ static int launch_typed(const void* q, const void* pk, const void* pv,
   switch (hd) {
 #define PAGED_CASE(d)                                                        \
   case d:                                                                    \
-    return launch_hd<T, d>(grid, qq, kk, vv, page_idx, span_len, tkk, tvv,   \
-                           oo, part, tickets, H, KV, nbt, Tp, tail_len,      \
-                           window, scale, st);
+    return softcap > 0.f                                                     \
+               ? launch_hd<T, d, true>(grid, qq, kk, vv, page_idx, span_len, \
+                                       tkk, tvv, oo, part, tickets, H, KV,   \
+                                       nbt, Tp, tail_len, window, scale,     \
+                                       softcap, st)                          \
+               : launch_hd<T, d, false>(grid, qq, kk, vv, page_idx,          \
+                                        span_len, tkk, tvv, oo, part,        \
+                                        tickets, H, KV, nbt, Tp, tail_len,   \
+                                        window, scale, softcap, st);
     PAGED_CASE(32)
     PAGED_CASE(64)
     PAGED_CASE(128)
@@ -171,9 +180,11 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* pk,
                                          float* part, int* tickets, int B,
                                          int H, int KV, int hd, int bt,
                                          int nbt, int Tp, int tail_len, int S,
-                                         int window, float scale, int dtype,
+                                         int window, float scale,
+                                         float softcap, int dtype,
                                          void* stream) {
   if (bt != kBT || H % KV != 0 || H / KV > kMaxG || window < 1 ||
+      !(softcap >= 0.f) ||
       S < n_splits(nbt + (tk ? (Tp + kBT - 1) / kBT : 0)))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
@@ -181,8 +192,8 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* pk,
   if (dtype == kF32)
     return launch_typed<float>(q, pk, pv, page_idx, span_len, tk, tv, out,
                                part, tickets, B, H, KV, hd, nbt, Tp, tail_len,
-                               S, window, scale, st);
+                               S, window, scale, softcap, st);
   return launch_typed<__nv_bfloat16>(q, pk, pv, page_idx, span_len, tk, tv,
                                      out, part, tickets, B, H, KV, hd, nbt, Tp,
-                                     tail_len, S, window, scale, st);
+                                     tail_len, S, window, scale, softcap, st);
 }

@@ -30,6 +30,12 @@
 // function's dynamic shared memory (prefill::smem_bytes at head dim 128:
 // the ring, 68 KB in bf16; the ring and Q, 101 KB in f32; at head dim 256
 // 165 KB in bf16 and 197 KB in f32, one block an SM).
+//
+// Logit soft cap (Grok-1): a positive softcap at the C interface launches
+// flash_prefill_capped_kernel, the same tile function with the cap
+// compiled in (and, in f32, each k-step of Q K^T in a fresh fragment;
+// prefill_attn.cuh);
+// softcap 0 launches flash_prefill_kernel, compiled as before the cap.
 #include "prefill_attn.cuh"
 
 using prefill::kBQ;
@@ -55,34 +61,67 @@ struct DenseRows {
 
 }  // namespace
 
+template <typename T, int HD, bool kCap>
+__device__ __forceinline__ void prefill_block(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ out, const int* __restrict__ q_pos,
+    const int* __restrict__ kv_len, int Sq, int Sk, int H, int KV, int window,
+    float scale, bool vec, float softcap) {
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const long long base = (long long)b * Sk * KV * HD;
+  const DenseRows<T, HD> rows{k + base, v + base, KV, kvh, Sk,
+                              kv_len ? min(kv_len[b], Sk) : Sk};
+  prefill::attend<T, HD, kCap>(q, out, q_pos, tile, h, b, Sq, H, window,
+                               true, scale, softcap, vec, rows);
+}
+
 template <typename T, int HD>
 __global__ void __launch_bounds__(prefill::threads<HD>())
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      const int* __restrict__ q_pos, const int* __restrict__ kv_len,
                      int Sq, int Sk, int H, int KV, int window, float scale,
-                     bool vec) {
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const long long base = (long long)b * Sk * KV * HD;
-  const DenseRows<T, HD> rows{k + base, v + base, KV, kvh, Sk,
-                              kv_len ? min(kv_len[b], Sk) : Sk};
-  prefill::attend<T, HD>(q, out, q_pos, tile, h, b, Sq, H, window, true,
-                         scale, vec, rows);
+                     bool vec, float softcap) {
+  prefill_block<T, HD, false>(q, k, v, out, q_pos, kv_len, Sq, Sk, H, KV,
+                              window, scale, vec, softcap);
 }
 
+// The capped instance, with one block an SM declared (prefill::kCapBlocks)
+// so that ptxas may give it the registers it needs without spilling.
 template <typename T, int HD>
+__global__ void __launch_bounds__(prefill::threads<HD>(), prefill::kCapBlocks)
+flash_prefill_capped_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ out,
+                            const int* __restrict__ q_pos,
+                            const int* __restrict__ kv_len, int Sq, int Sk,
+                            int H, int KV, int window, float scale, bool vec,
+                            float softcap) {
+  prefill_block<T, HD, true>(q, k, v, out, q_pos, kv_len, Sq, Sk, H, KV,
+                             window, scale, vec, softcap);
+}
+
+template <typename T, int HD, bool kCap>
+auto kernel_of() {
+  if constexpr (kCap)
+    return flash_prefill_capped_kernel<T, HD>;
+  else
+    return flash_prefill_kernel<T, HD>;
+}
+
+template <typename T, int HD, bool kCap>
 static int launch_hd(dim3 grid, const T* q, const T* k, const T* v, T* out,
                      const int* q_pos, const int* kv_len, int Sq, int Sk,
-                     int H, int KV, int window, float scale, bool vec,
-                     cudaStream_t st) {
+                     int H, int KV, int window, float scale, float softcap,
+                     bool vec, cudaStream_t st) {
   constexpr int smem = prefill::smem_bytes<T, HD>();
+  const auto kernel = kernel_of<T, HD, kCap>();
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_prefill_kernel<T, HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  flash_prefill_kernel<T, HD><<<grid, prefill::threads<HD>(), smem, st>>>(
-      q, k, v, out, q_pos, kv_len, Sq, Sk, H, KV, window, scale, vec);
+  kernel<<<grid, prefill::threads<HD>(), smem, st>>>(
+          q, k, v, out, q_pos, kv_len, Sq, Sk, H, KV, window, scale, vec,
+          softcap);
   return (int)cudaGetLastError();
 }
 
@@ -90,7 +129,7 @@ template <typename T>
 static int launch_typed(const void* q, const void* k, const void* v, void* out,
                         const int* q_pos, const int* kv_len, int B, int Sq,
                         int Sk, int H, int KV, int hd, int window, float scale,
-                        cudaStream_t st) {
+                        float softcap, cudaStream_t st) {
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   const bool vec = ((uintptr_t)k % 16 == 0) && ((uintptr_t)v % 16 == 0);
   const T* qq = (const T*)q;
@@ -100,8 +139,13 @@ static int launch_typed(const void* q, const void* k, const void* v, void* out,
   switch (hd) {
 #define PREFILL_CASE(d)                                                      \
   case d:                                                                    \
-    return launch_hd<T, d>(grid, qq, kk, vv, oo, q_pos, kv_len, Sq, Sk, H,   \
-                           KV, window, scale, vec, st);
+    return softcap > 0.f                                                     \
+               ? launch_hd<T, d, true>(grid, qq, kk, vv, oo, q_pos, kv_len,  \
+                                       Sq, Sk, H, KV, window, scale,         \
+                                       softcap, vec, st)                     \
+               : launch_hd<T, d, false>(grid, qq, kk, vv, oo, q_pos, kv_len, \
+                                        Sq, Sk, H, KV, window, scale,        \
+                                        softcap, vec, st);
     PREFILL_CASE(32)
     PREFILL_CASE(64)
     PREFILL_CASE(128)
@@ -112,17 +156,20 @@ static int launch_typed(const void* q, const void* k, const void* v, void* out,
   }
 }
 
-// kv_len may be null (every batch row has Sk valid columns).
+// kv_len may be null (every batch row has Sk valid columns); softcap 0
+// runs the uncapped instance, a positive one the capped instance.
 extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v,
                                     void* out, const int* q_pos,
                                     const int* kv_len, int B, int Sq, int Sk,
                                     int H, int KV, int hd, int window,
-                                    float scale, int dtype, void* stream) {
+                                    float scale, float softcap, int dtype,
+                                    void* stream) {
+  if (!(softcap >= 0.f)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kF32)
     return launch_typed<float>(q, k, v, out, q_pos, kv_len, B, Sq, Sk, H, KV,
-                               hd, window, scale, st);
+                               hd, window, scale, softcap, st);
   return launch_typed<__nv_bfloat16>(q, k, v, out, q_pos, kv_len, B, Sq, Sk,
-                                     H, KV, hd, window, scale, st);
+                                     H, KV, hd, window, scale, softcap, st);
 }

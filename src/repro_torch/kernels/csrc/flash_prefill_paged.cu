@@ -27,7 +27,9 @@
 // the dense kernel, with PagedRows saying where each row lives. Rows are
 // addressed one by one, so the tiles hold the same rows as the dense
 // kernel's over the gathered stream and both give the same bits, for any
-// span length and any page size.
+// span length and any page size. A positive softcap launches the capped
+// instance (flash_prefill_paged_capped_kernel), which stays bit-equal to
+// the dense kernel's capped instance on the same rows.
 #include "prefill_attn.cuh"
 
 using prefill::kBQ;
@@ -64,6 +66,24 @@ struct PagedRows {
 
 }  // namespace
 
+template <typename T, int HD, bool kCap>
+__device__ __forceinline__ void paged_block(
+    const T* __restrict__ q, const T* __restrict__ pk,
+    const T* __restrict__ pv, const int* __restrict__ page_idx,
+    const T* __restrict__ tk, const T* __restrict__ tv, T* __restrict__ out,
+    const int* __restrict__ q_pos, int Sq, int H, int KV, int bt, int nbh,
+    int span, int tail_rows, int window, int causal, float scale, bool vec,
+    float softcap) {
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const long long tb = (long long)b * tail_rows * KV * HD;
+  const PagedRows<T, HD> rows{pk, pv, page_idx + (long long)b * nbh,
+                              tk ? tk + tb : nullptr, tv ? tv + tb : nullptr,
+                              KV, kvh, bt, span, tail_rows};
+  prefill::attend<T, HD, kCap>(q, out, q_pos, tile, h, b, Sq, H, window,
+                               causal != 0, scale, softcap, vec, rows);
+}
+
 template <typename T, int HD>
 __global__ void __launch_bounds__(prefill::threads<HD>())
 flash_prefill_paged_kernel(const T* __restrict__ q, const T* __restrict__ pk,
@@ -73,31 +93,50 @@ flash_prefill_paged_kernel(const T* __restrict__ q, const T* __restrict__ pk,
                            T* __restrict__ out, const int* __restrict__ q_pos,
                            int Sq, int H, int KV, int bt, int nbh, int span,
                            int tail_rows, int window, int causal, float scale,
-                           bool vec) {
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const long long tb = (long long)b * tail_rows * KV * HD;
-  const PagedRows<T, HD> rows{pk, pv, page_idx + (long long)b * nbh,
-                              tk ? tk + tb : nullptr, tv ? tv + tb : nullptr,
-                              KV, kvh, bt, span, tail_rows};
-  prefill::attend<T, HD>(q, out, q_pos, tile, h, b, Sq, H, window,
-                         causal != 0, scale, vec, rows);
+                           bool vec, float softcap) {
+  paged_block<T, HD, false>(q, pk, pv, page_idx, tk, tv, out, q_pos, Sq, H,
+                            KV, bt, nbh, span, tail_rows, window, causal,
+                            scale, vec, softcap);
 }
 
+// The capped instance, with one block an SM declared (prefill::kCapBlocks)
+// so that ptxas may give it the registers it needs without spilling.
 template <typename T, int HD>
+__global__ void __launch_bounds__(prefill::threads<HD>(), prefill::kCapBlocks)
+flash_prefill_paged_capped_kernel(
+    const T* __restrict__ q, const T* __restrict__ pk,
+    const T* __restrict__ pv, const int* __restrict__ page_idx,
+    const T* __restrict__ tk, const T* __restrict__ tv, T* __restrict__ out,
+    const int* __restrict__ q_pos, int Sq, int H, int KV, int bt, int nbh,
+    int span, int tail_rows, int window, int causal, float scale, bool vec,
+    float softcap) {
+  paged_block<T, HD, true>(q, pk, pv, page_idx, tk, tv, out, q_pos, Sq, H,
+                           KV, bt, nbh, span, tail_rows, window, causal,
+                           scale, vec, softcap);
+}
+
+template <typename T, int HD, bool kCap>
+auto kernel_of() {
+  if constexpr (kCap)
+    return flash_prefill_paged_capped_kernel<T, HD>;
+  else
+    return flash_prefill_paged_kernel<T, HD>;
+}
+
+template <typename T, int HD, bool kCap>
 static int launch_hd(dim3 grid, const T* q, const T* pk, const T* pv,
                      const int* page_idx, const T* tk, const T* tv, T* out,
                      const int* q_pos, int Sq, int H, int KV, int bt, int nbh,
                      int span, int tail_rows, int window, int causal,
-                     float scale, bool vec, cudaStream_t st) {
+                     float scale, float softcap, bool vec, cudaStream_t st) {
   constexpr int smem = prefill::smem_bytes<T, HD>();
+  const auto kernel = kernel_of<T, HD, kCap>();
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_prefill_paged_kernel<T, HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  flash_prefill_paged_kernel<T, HD><<<grid, prefill::threads<HD>(), smem, st>>>(
-      q, pk, pv, page_idx, tk, tv, out, q_pos, Sq, H, KV, bt, nbh, span,
-      tail_rows, window, causal, scale, vec);
+  kernel<<<grid, prefill::threads<HD>(), smem, st>>>(
+          q, pk, pv, page_idx, tk, tv, out, q_pos, Sq, H, KV, bt, nbh, span,
+          tail_rows, window, causal, scale, vec, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -106,7 +145,8 @@ static int launch_typed(const void* q, const void* pk, const void* pv,
                         const int* page_idx, const void* tk, const void* tv,
                         void* out, const int* q_pos, int B, int Sq, int H,
                         int KV, int hd, int bt, int nbh, int span, int tail_rows,
-                        int window, int causal, float scale, cudaStream_t st) {
+                        int window, int causal, float scale, float softcap,
+                        cudaStream_t st) {
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   const bool vec = ((uintptr_t)pk | (uintptr_t)pv | (uintptr_t)tk |
                     (uintptr_t)tv) % 16 == 0;
@@ -119,9 +159,15 @@ static int launch_typed(const void* q, const void* pk, const void* pv,
   switch (hd) {
 #define PAGED_CASE(d)                                                        \
   case d:                                                                    \
-    return launch_hd<T, d>(grid, qq, kk, vv, page_idx, tkk, tvv, oo, q_pos,  \
-                           Sq, H, KV, bt, nbh, span, tail_rows, window,      \
-                           causal, scale, vec, st);
+    return softcap > 0.f                                                     \
+               ? launch_hd<T, d, true>(grid, qq, kk, vv, page_idx, tkk, tvv, \
+                                       oo, q_pos, Sq, H, KV, bt, nbh, span,  \
+                                       tail_rows, window, causal, scale,     \
+                                       softcap, vec, st)                     \
+               : launch_hd<T, d, false>(grid, qq, kk, vv, page_idx, tkk,     \
+                                        tvv, oo, q_pos, Sq, H, KV, bt, nbh,  \
+                                        span, tail_rows, window, causal,     \
+                                        scale, softcap, vec, st);
     PAGED_CASE(32)
     PAGED_CASE(64)
     PAGED_CASE(128)
@@ -137,14 +183,15 @@ extern "C" int flash_prefill_paged_launch(
     const void* q, const void* pk, const void* pv, const int* page_idx,
     const void* tk, const void* tv, void* out, const int* q_pos, int B, int Sq,
     int H, int KV, int hd, int bt, int nbh, int span, int tail_rows, int window,
-    int causal, float scale, int dtype, void* stream) {
+    int causal, float scale, float softcap, int dtype, void* stream) {
+  if (!(softcap >= 0.f)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kF32)
     return launch_typed<float>(q, pk, pv, page_idx, tk, tv, out, q_pos, B, Sq,
                                H, KV, hd, bt, nbh, span, tail_rows, window, causal,
-                               scale, st);
+                               scale, softcap, st);
   return launch_typed<__nv_bfloat16>(q, pk, pv, page_idx, tk, tv, out, q_pos,
                                      B, Sq, H, KV, hd, bt, nbh, span, tail_rows,
-                                     window, causal, scale, st);
+                                     window, causal, scale, softcap, st);
 }

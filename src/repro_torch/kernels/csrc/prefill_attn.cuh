@@ -12,6 +12,25 @@
 // (src/repro/kernels/flash_prefill.py:46-66), in f32, with the output
 // acc / max(l, 1e-30) rounded to T once.
 //
+// Logit soft cap (Grok-1; kCap, a template flag the launchers set when
+// the caller's cap c is positive): an allowed scaled score s becomes
+// c * tanhf(s / c) before the mask and the running max, as
+// repro/models/layers.py:106 computes it (the Pallas kernels have no
+// cap). tanhf and the division are the accurate ones: tanh.approx.f32's
+// relative error of ~2^-11 would be ~0.015 in a logit at c = 30, far
+// past the f32 tolerance. The uncapped instances compile to the code
+// they had without the flag. In f32 the capped instance forms each
+// k-step's split-TF32 products in a fresh zero fragment and adds that to
+// the scores in f32 (Tf32Op::scores<true>), where the uncapped one
+// accumulates every k-step in the running score fragment: an absolute
+// logit error that grows with the scores' magnitude and that the
+// uncapped softmax hides (at |s| ~ 300 it is one-hot), but under the cap
+// the softmax stays soft, and at q x 300, c = 30, hd 256 the running
+// fragment gave 5.1e-4 of output error against the 1e-4 f32 tolerance.
+// The dropped lo*lo term is not the cause (four TF32 products gave
+// 5.3e-4); the fresh fragment keeps the worst case at 0.46 of the
+// tolerance (scripts/probe_capped_scores.py).
+//
 // The skeleton (attend_tc): K/V stay in their own type in shared memory,
 // in a ring of kStages tiles of kBK rows filled by 16-byte cp.async
 // copies, so the next tile is in flight while one is computed (rows past
@@ -108,6 +127,14 @@ __host__ __device__ constexpr int col_split() { return HD > 128 ? 2 : 1; }
 // rows, each served by col_split<HD>() warps.
 template <int HD>
 __host__ __device__ constexpr int threads() { return 128 * col_split<HD>(); }
+
+// Blocks an SM the capped kernels declare to ptxas (__launch_bounds__):
+// left to its own choice, ptxas held the capped f32 instances (then with
+// an FMA product for Q K^T) at the register counts of three (hd 128) or
+// five (hd 32) blocks an SM and spilled 8-64 bytes; under this bound the
+// fresh-fragment product takes up to 255 registers and spills nothing.
+// The uncapped kernels declare none, as before.
+constexpr int kCapBlocks = 1;
 
 // --------------------------------------------------------------- bf16
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -334,7 +361,10 @@ struct Tf32Op {
   }
 
   // s += Q K^T over the tile's kBK columns. k-step ks takes head dims
-  // 8 ks + 2 (l % 4) (A and B column l % 4) and + 1 (column l % 4 + 4)
+  // 8 ks + 2 (l % 4) (A and B column l % 4) and + 1 (column l % 4 + 4).
+  // kFresh (the capped instance): each k-step's products go into a zero
+  // fragment, added to s in f32 (see the top of this file)
+  template <bool kFresh = false>
   __device__ __forceinline__ void scores(float (&s)[kBK / 8][4], const T* Ks,
                                          int lane) const {
     const int g = lane >> 2, tg = lane & 3;
@@ -357,7 +387,16 @@ struct Tf32Op {
         uint32_t bh0, bl0, bh1, bl1;
         split_tf32(k.x, bh0, bl0);
         split_tf32(k.y, bh1, bl1);
-        mma_3xtf32(s[j], ah, al, bh0, bh1, bl0, bl1);
+        if constexpr (kFresh) {
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_3xtf32(t, ah, al, bh0, bh1, bl0, bl1);
+          s[j][0] += t[0];
+          s[j][1] += t[1];
+          s[j][2] += t[2];
+          s[j][3] += t[3];
+        } else {
+          mma_3xtf32(s[j], ah, al, bh0, bh1, bl0, bl1);
+        }
       }
     }
   }
@@ -443,14 +482,15 @@ constexpr int smem_bytes() {
 // the Rows hand out is 16-byte aligned, so tiles are staged in 16-byte
 // words by cp.async (else element by element; the staged values are the
 // same).
-template <typename Op, int HD, typename Rows, typename T = typename Op::T>
+template <typename Op, int HD, bool kCap, typename Rows,
+          typename T = typename Op::T>
 __device__ __forceinline__ void attend_tc(const T* __restrict__ q,
                                           T* __restrict__ out,
                                           const int* __restrict__ q_pos,
                                           int tile, int h, int b, int Sq,
                                           int H, int window, bool causal,
-                                          float scale, bool vec,
-                                          const Rows& rows) {
+                                          float scale, float softcap,
+                                          bool vec, const Rows& rows) {
   constexpr int BK = Op::kBK, S = Op::kStages, PK = Op::kPK, PV = Op::kPV;
   constexpr int kSplit = col_split<HD>(), kThreads = threads<HD>();
   constexpr int ND = Op::kOut / 8;       // 8-column slices of a warp's output
@@ -572,9 +612,12 @@ __device__ __forceinline__ void attend_tc(const T* __restrict__ q,
     float s[NS][4];
 #pragma unroll
     for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    op.scores(s, Ks, lane);
+    if constexpr (kCap && std::is_same<T, float>::value)
+      op.template scores<true>(s, Ks, lane);
+    else
+      op.scores(s, Ks, lane);
 
-    // scale, mask, and the row maxima over the 4 lanes of a row
+    // scale, cap, mask, and the row maxima over the 4 lanes of a row
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
@@ -584,7 +627,11 @@ __device__ __forceinline__ void attend_tc(const T* __restrict__ q,
         const int dl = (e < 2 ? p0 : p1) - c;
         const bool ok = (e < 2 ? v0 : v1) && (!causal || dl >= 0) &&
                         dl < window && c < klen;
-        s[j][e] = ok ? s[j][e] * scale : kNegInf;
+        if constexpr (kCap)
+          s[j][e] = ok ? softcap * tanhf(s[j][e] * scale / softcap)
+                       : kNegInf;
+        else
+          s[j][e] = ok ? s[j][e] * scale : kNegInf;
       }
       mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
       mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
@@ -633,16 +680,18 @@ __device__ __forceinline__ void attend_tc(const T* __restrict__ q,
 }
 
 // The tile function of both prefill kernels. A launch passes
-// smem_bytes<T, HD>() of dynamic shared memory.
-template <typename T, int HD, typename Rows>
+// smem_bytes<T, HD>() of dynamic shared memory; kCap instances cap the
+// scores at softcap (> 0), the others ignore it.
+template <typename T, int HD, bool kCap, typename Rows>
 __device__ __forceinline__ void attend(const T* __restrict__ q,
                                        T* __restrict__ out,
                                        const int* __restrict__ q_pos,
                                        int tile, int h, int b, int Sq, int H,
                                        int window, bool causal, float scale,
-                                       bool vec, const Rows& rows) {
-  attend_tc<OpOf<T, HD>, HD>(q, out, q_pos, tile, h, b, Sq, H, window, causal,
-                             scale, vec, rows);
+                                       float softcap, bool vec,
+                                       const Rows& rows) {
+  attend_tc<OpOf<T, HD>, HD, kCap>(q, out, q_pos, tile, h, b, Sq, H, window,
+                                   causal, scale, softcap, vec, rows);
 }
 
 }  // namespace prefill

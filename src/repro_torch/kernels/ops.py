@@ -81,6 +81,17 @@ def _check_rows(name: str, t: torch.Tensor, dtype) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _softcap(softcap: float) -> float:
+    """The logit soft cap c of an attention call: 0 (none) or positive;
+    a negative or NaN cap raises. The four attention kernels take it as
+    a float and dispatch at launch to an instance with the cap compiled
+    in (c > 0) or one without."""
+    c = float(softcap)
+    if not c >= 0.0:
+        raise ValueError(f"softcap must be >= 0, got {softcap}")
+    return c
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -166,14 +177,18 @@ def block_diff(ks: torch.Tensor, vs: torch.Tensor, master: int,
 # --------------------------------------------------------------------------
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_pos: torch.Tensor, window: int,
-                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    kv_len: Optional[torch.Tensor] = None,
+                    softcap: float = 0.0) -> torch.Tensor:
     """GQA attention of queries at positions ``q_pos`` ([B, Sq] int32)
     over dense KV; q ``[B, Sq, H, hd]``, k/v ``[B, Sk, KV, hd]``, the
     layout of ``models.layers``. Column j is allowed iff ``0 <= q_pos -
-    j < window`` and ``j < kv_len[b]``. Returns ``[B, Sq, H, hd]``."""
+    j < window`` and ``j < kv_len[b]``. A ``softcap`` c > 0 caps each
+    scaled logit s to ``c * tanh(s / c)`` before the mask (Grok's
+    attention). Returns ``[B, Sq, H, hd]``."""
+    softcap = _softcap(softcap)
     if _on_cpu("flash_prefill", q, k, v, q_pos, kv_len):
         return ref.flash_attention_ref(q, k, v, q_pos=q_pos, window=window,
-                                       kv_len=kv_len)
+                                       kv_len=kv_len, softcap=softcap)
     _check("q", q, ndim=4)
     _check("k", k, dtype=q.dtype, ndim=4)
     _check("v", v, dtype=q.dtype, ndim=4)
@@ -194,7 +209,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _launch("flash_prefill", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), q_pos.data_ptr(),
             None if kv_len is None else kv_len.data_ptr(),
-            B, Sq, Sk, H, KV, hd, window, 1.0 / math.sqrt(hd),
+            B, Sq, Sk, H, KV, hd, window, 1.0 / math.sqrt(hd), softcap,
             _DTYPES[q.dtype], _stream(q))
     return out
 
@@ -216,7 +231,8 @@ def flash_prefill_paged(q: torch.Tensor, pool_k: torch.Tensor,
                         tail_k: Optional[torch.Tensor] = None,
                         tail_v: Optional[torch.Tensor] = None, *,
                         span_len: int, causal: bool = True, window: int = 0,
-                        q_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        q_pos: Optional[torch.Tensor] = None,
+                        softcap: float = 0.0) -> torch.Tensor:
     """GQA flash attention whose KV stream is read from pool pages in
     place. q ``[B, Sq, H, hd]``; pools ``[P, bt, KV, hd]``; ``page_idx``
     int32 ``[B, nbh]`` (sequence b's row r < ``span_len`` is slot r % bt of
@@ -225,12 +241,14 @@ def flash_prefill_paged(q: torch.Tensor, pool_k: torch.Tensor,
     Queries sit at ``q_pos`` (int32 ``[B, Sq]``), or row i at position i
     with ``Sq == span_len + T`` (the JAX wrapper's contract). Column c is
     allowed iff ``p - c < window`` (``window`` 0: unbounded) and, when
-    ``causal``, ``p >= c``. Returns ``[B, Sq, H, hd]``."""
+    ``causal``, ``p >= c``; ``softcap`` as in :func:`flash_attention`.
+    Returns ``[B, Sq, H, hd]``."""
+    softcap = _softcap(softcap)
     if _on_cpu("flash_prefill_paged", q, pool_k, pool_v, page_idx, tail_k,
                tail_v, q_pos):
         return ref.flash_attention_paged_ref(
             q, pool_k, pool_v, page_idx, tail_k, tail_v, span_len=span_len,
-            causal=causal, window=window, q_pos=q_pos)
+            causal=causal, window=window, q_pos=q_pos, softcap=softcap)
     _check("q", q, ndim=4)
     _check("pool_k", pool_k, dtype=q.dtype, ndim=4)
     _check("pool_v", pool_v, dtype=q.dtype, ndim=4)
@@ -268,7 +286,8 @@ def flash_prefill_paged(q: torch.Tensor, pool_k: torch.Tensor,
             None if tail_v is None else tail_v.data_ptr(), out.data_ptr(),
             None if q_pos is None else q_pos.data_ptr(), B, Sq, H, KV, hd, bt,
             nbh, span_len, T, int(min(window, 2 ** 31 - 1)) or 2 ** 31 - 1,
-            int(causal), 1.0 / math.sqrt(hd), _DTYPES[q.dtype], _stream(q))
+            int(causal), 1.0 / math.sqrt(hd), softcap, _DTYPES[q.dtype],
+            _stream(q))
     return out
 
 
@@ -327,19 +346,22 @@ def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
                        span_len: torch.Tensor,
                        tail_k: Optional[torch.Tensor] = None,
                        tail_v: Optional[torch.Tensor] = None,
-                       tail_len: int = 0, window: int = 0) -> torch.Tensor:
+                       tail_len: int = 0, window: int = 0,
+                       softcap: float = 0.0) -> torch.Tensor:
     """One query per sequence (q ``[B, H, hd]``) over its pages
     ``page_idx[b]`` of the pools ``[P, bt, KV, hd]`` (the first
     ``span_len[b]`` tokens, int32 on device), then over the first
     ``tail_len`` rows of the dense tails ``[B, Tp, KV, hd]``. Page column
     c sits at position c, tail row t at ``span_len[b] + t`` and the query
     at ``qpos = span_len[b] + tail_len - 1``: a valid column is allowed
-    iff ``qpos - c < window`` (``window`` 0: unbounded)."""
+    iff ``qpos - c < window`` (``window`` 0: unbounded); ``softcap`` as
+    in :func:`flash_attention`."""
+    softcap = _softcap(softcap)
     if _on_cpu("flash_decode_paged", q, pool_k, pool_v, page_idx,
                span_len, tail_k, tail_v):
         return ref.flash_decode_paged_ref(q, pool_k, pool_v, page_idx,
                                           span_len, tail_k, tail_v, tail_len,
-                                          window)
+                                          window, softcap=softcap)
     _check("q", q, ndim=3)
     for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
         _check_rows(name, t, q.dtype)
@@ -372,20 +394,23 @@ def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
             out.data_ptr(), part.data_ptr(), tickets.data_ptr(), B, H, KV,
             hd, bt, nbt, Tp, tail_len if tail_k is not None else 0, S,
             int(min(window, 2 ** 31 - 1)) or 2 ** 31 - 1,
-            1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
+            1.0 / math.sqrt(hd), softcap, _DTYPES[q.dtype], stream)
     return out
 
 
 # --------------------------------------------------------------------------
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 kv_len: torch.Tensor, window: int) -> torch.Tensor:
+                 kv_len: torch.Tensor, window: int,
+                 softcap: float = 0.0) -> torch.Tensor:
     """One query per sequence (q ``[B, H, hd]``) at position
     ``kv_len[b] - 1`` over its dense KV ``[B, Sk, KV, hd]`` (``kv_len``
     int32 ``[B]`` on the device): column j is allowed iff ``j <
-    kv_len[b]`` and ``kv_len[b] - 1 - j < window``. Returns
-    ``[B, H, hd]``."""
+    kv_len[b]`` and ``kv_len[b] - 1 - j < window``; ``softcap`` as in
+    :func:`flash_attention`. Returns ``[B, H, hd]``."""
+    softcap = _softcap(softcap)
     if _on_cpu("flash_decode", q, k, v, kv_len):
-        return ref.flash_decode_ref(q, k, v, kv_len, window)
+        return ref.flash_decode_ref(q, k, v, kv_len, window,
+                                    softcap=softcap)
     _check("q", q, ndim=3)
     _check_rows("k", k, q.dtype)
     _check_rows("v", v, q.dtype)
@@ -403,7 +428,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch("flash_decode", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kv_len.data_ptr(), out.data_ptr(), part.data_ptr(),
             tickets.data_ptr(), B, H, KV, hd, Sk, S,
-            int(min(window, 2 ** 31 - 1)), 1.0 / math.sqrt(hd),
+            int(min(window, 2 ** 31 - 1)), 1.0 / math.sqrt(hd), softcap,
             _DTYPES[q.dtype], stream)
     return out
 

@@ -18,6 +18,14 @@ import torch
 NEG_INF = -2.0 ** 30
 
 
+def cap_logits(logits: torch.Tensor, softcap: float) -> torch.Tensor:
+    """``c * tanh(logits / c)`` for a ``softcap`` c > 0 (Grok's logit soft
+    cap, applied as ``repro.models.layers.gqa_attention`` applies it: to
+    the scaled f32 logits, before the mask); the logits as they are for
+    c = 0."""
+    return softcap * torch.tanh(logits / softcap) if softcap else logits
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     """f32 ``1/θ^(i/half)`` for ``i < head_dim/2`` — the frequency form
     ``models.layers.rope_cos_sin`` rotates with."""
@@ -130,13 +138,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         q_pos: torch.Tensor, window: int,
                         kv_len: Optional[torch.Tensor] = None,
                         scale: Optional[float] = None,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True,
+                        softcap: float = 0.0) -> torch.Tensor:
     """GQA attention of queries at arbitrary positions over a dense KV.
 
     q ``[B, Sq, H, hd]``; k/v ``[B, Sk, KV, hd]``; ``q_pos`` int ``[B, Sq]``.
     Column ``j`` (its position is ``j``) is allowed for a query at ``p``
     iff ``0 <= p - j < window`` and ``j < kv_len[b]`` (``causal=False``
-    drops the ``0 <=``). Masked logits are ``-2^30``; softmax in f32.
+    drops the ``0 <=``). A ``softcap`` c > 0 caps the scaled logits to
+    ``c * tanh(s / c)`` (:func:`cap_logits`) before the mask. Masked
+    logits are ``-2^30``; softmax in f32.
     Returns ``[B, Sq, H, hd]`` in v's dtype.
     """
     B, Sq, H, hd = q.shape
@@ -144,7 +155,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     G = H // KV
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     qg = q.reshape(B, Sq, KV, G, hd).float()
-    logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * scale
+    logits = cap_logits(
+        torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * scale, softcap)
     cols = torch.arange(Sk, device=q.device)
     delta = q_pos[:, :, None].long() - cols[None, None, :]       # [B, Sq, Sk]
     allowed = delta < window
@@ -185,12 +197,14 @@ def flash_attention_paged_ref(q: torch.Tensor, pool_k: torch.Tensor,
                               span_len: int, causal: bool = True,
                               window: int = 0,
                               q_pos: Optional[torch.Tensor] = None,
-                              scale: Optional[float] = None) -> torch.Tensor:
+                              scale: Optional[float] = None,
+                              softcap: float = 0.0) -> torch.Tensor:
     """Flash prefill over paged KV: gather pages + tails
     (:func:`paged_kv_ref`), then dense attention. q ``[B, Sq, H, hd]``,
     queries at ``q_pos`` (int ``[B, Sq]``; default row i at position i,
     with Sq == span_len + T as the JAX oracle requires); ``window`` 0 is
-    unbounded, as in the JAX kernel."""
+    unbounded, as in the JAX kernel; ``softcap`` as in
+    :func:`flash_attention_ref`."""
     k, v = paged_kv_ref(pool_k, pool_v, page_idx, tail_k, tail_v, span_len)
     B, Sq = q.shape[:2]
     if q_pos is None:
@@ -199,20 +213,23 @@ def flash_attention_paged_ref(q: torch.Tensor, pool_k: torch.Tensor,
                              device=q.device).expand(B, Sq)
     return flash_attention_ref(q, k, v, q_pos=q_pos,
                                window=window if window else 2 ** 31 - 1,
-                               scale=scale, causal=causal)
+                               scale=scale, causal=causal, softcap=softcap)
 
 
 def _decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   allowed: torch.Tensor, scale: float) -> torch.Tensor:
+                   allowed: torch.Tensor, scale: float,
+                   softcap: float = 0.0) -> torch.Tensor:
     """One query per sequence (q ``[B, H, hd]``) over dense k/v
-    ``[B, Sk, KV, hd]`` where ``allowed`` ``[B, Sk]``; softmax in f32.
+    ``[B, Sk, KV, hd]`` where ``allowed`` ``[B, Sk]``; the scaled logits
+    capped by a ``softcap`` c > 0 (:func:`cap_logits`); softmax in f32.
     The one body of both decode references, so the dense and the paged
     plain versions compute the same bits on the same rows."""
     B, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
     qg = q.reshape(B, KV, G, hd).float()
-    logits = torch.einsum("bkgh,bskh->bkgs", qg, k.float()) * scale
+    logits = cap_logits(
+        torch.einsum("bkgh,bskh->bkgs", qg, k.float()) * scale, softcap)
     logits = torch.where(allowed[:, None, None], logits,
                          torch.tensor(NEG_INF, device=q.device))
     probs = torch.softmax(logits, dim=-1)
@@ -222,13 +239,15 @@ def _decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, window: int,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     softcap: float = 0.0) -> torch.Tensor:
     """One query per sequence over its dense KV, with a sliding window.
 
     q ``[B, H, hd]``; k/v ``[B, Sk, KV, hd]``; ``kv_len`` int ``[B]``.
     Sequence b's query sits at position ``kv_len[b] - 1``: column ``j`` is
     allowed iff ``j < kv_len[b]`` and ``kv_len[b] - 1 - j < window``.
-    Masked logits are ``-2^30``; softmax in f32. Returns ``[B, H, hd]``
+    ``softcap`` as in :func:`flash_attention_ref`. Masked logits are
+    ``-2^30``; softmax in f32. Returns ``[B, H, hd]``
     in v's dtype (the JAX ``flash_decode_ref`` with a batch axis).
     """
     hd = q.shape[-1]
@@ -236,7 +255,7 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cols = torch.arange(k.shape[1], device=q.device)
     kl = kv_len.long()[:, None]
     allowed = (cols[None, :] < kl) & (kl - 1 - cols[None, :] < window)
-    return _decode_attend(q, k, v, allowed, scale)
+    return _decode_attend(q, k, v, allowed, scale, softcap)
 
 
 def flash_decode_paged_ref(q: torch.Tensor, pool_k: torch.Tensor,
@@ -245,7 +264,8 @@ def flash_decode_paged_ref(q: torch.Tensor, pool_k: torch.Tensor,
                            tail_k: Optional[torch.Tensor] = None,
                            tail_v: Optional[torch.Tensor] = None,
                            tail_len: int = 0, window: int = 0,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           softcap: float = 0.0) -> torch.Tensor:
     """One query per sequence over its page-table KV, then a dense tail.
 
     q ``[B, H, hd]``; pools ``[P, bt, KV, hd]``; ``page_idx`` int
@@ -254,8 +274,9 @@ def flash_decode_paged_ref(q: torch.Tensor, pool_k: torch.Tensor,
     column c sits at position c and tail row t at ``span_len[b] + t``; the
     query sits after everything valid, at ``qpos = span_len[b] + tail_len
     - 1``. A valid column at position c is allowed iff ``qpos - c <
-    window`` (``window`` 0: unbounded, as in the JAX kernel). Gathers the
-    dense stream the kernel never builds, then attends.
+    window`` (``window`` 0: unbounded, as in the JAX kernel); ``softcap``
+    as in :func:`flash_attention_ref`. Gathers the dense stream the kernel
+    never builds, then attends.
     """
     B, H, hd = q.shape
     P, bt, KV, _ = pool_k.shape
@@ -277,4 +298,4 @@ def flash_decode_paged_ref(q: torch.Tensor, pool_k: torch.Tensor,
         pos = torch.cat([pos, span + rows], dim=1)
     if window:
         valid = valid & (span + tl - 1 - pos < window)
-    return _decode_attend(q, k, v, valid, scale)
+    return _decode_attend(q, k, v, valid, scale, softcap)

@@ -1,7 +1,9 @@
 """Decoder model of the port: weights, prefill and decode.
 
 One block function handles attention, SSM and hybrid layers (attention
-and Mamba2 heads side by side, each output RMS-normed, then averaged).
+and Mamba2 heads side by side, each output RMS-normed, then averaged),
+each followed by a SwiGLU MLP, an MoE block (with Arctic's dense
+residual) or, in an attention-free SSM layer, nothing.
 Parameters are the JAX package's pytree as nested dicts of tensors, with
 every leaf under ``params["blocks"]`` stacked on a leading layer axis
 (``[L, ...]``, as ``repro.core.pic._layer`` indexes it). Layers run as a
@@ -18,7 +20,11 @@ Python loop in eager mode. Public API:
 
 ``device=None`` means the CUDA device, and raises when there is none.
 ``long_context=True`` (every entry point that attends) gives every layer
-the config's ``long_context_window``, as JAX's ``_windows`` does.
+the config's ``long_context_window``, as JAX's ``_windows`` does. The
+config's ``attn_logit_softcap`` reaches every attention call (Grok-1).
+A ``frontend`` (audio, vision) is stubbed as in JAX: ``forward`` and
+``prefill`` take precomputed ``frontend_embeds`` for the first positions;
+the other entry points read tokens.
 """
 from __future__ import annotations
 
@@ -34,12 +40,11 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_rope,
     attention,
-    check_supported,
+    feed_forward,
     out_proj,
     project_qkv,
     rmsnorm,
     rope_cos_sin,
-    swiglu_mlp,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -67,9 +72,8 @@ def init_params(cfg: ModelConfig, seed: int, device=None) -> dict:
     """Random weights from ``seed`` (an explicit ``torch.Generator`` on
     the target device), with the JAX ``init_params`` shapes and scales:
     N(0, 0.02) matrices, ``0.02/sqrt(2L)`` output projections, zero norms
-    and biases. Each layer's slice is drawn in f32 and cast, so the f32
-    scratch never exceeds one layer of one weight."""
-    check_supported(cfg)
+    and biases. Each matrix (a layer's, or a layer's expert's) is drawn
+    in f32 and cast, so the f32 scratch never exceeds one matrix."""
     dev = resolve_device(device)
     dt = dtype_of(cfg)
     L, D = cfg.n_layers, cfg.d_model
@@ -80,7 +84,7 @@ def init_params(cfg: ModelConfig, seed: int, device=None) -> dict:
 
     def w(shape, scale=0.02, stacked=True):
         out = torch.empty(shape, dtype=dt, device=dev)
-        for sl in (out if stacked else [out]):
+        for sl in (out.view(-1, *shape[-2:]) if stacked else [out]):
             sl.copy_(torch.randn(sl.shape, generator=gen, device=dev,
                                  dtype=torch.float32) * scale)
         return out
@@ -121,7 +125,16 @@ def init_params(cfg: ModelConfig, seed: int, device=None) -> dict:
     if cfg.hybrid:
         blocks["attn_out_norm"] = zeros((L, D))
         blocks["ssm_out_norm"] = zeros((L, D))
-    if cfg.d_ff and cfg.arch_type != "ssm":
+    if cfg.is_moe:
+        E = cfg.n_experts
+        moe = {"router": w((L, D, E)), "w_gate": w((L, E, D, F_)),
+               "w_up": w((L, E, D, F_)), "w_down": w((L, E, F_, D), out_scale)}
+        if cfg.dense_residual:
+            moe["dense"] = {"w_gate": w((L, D, F_)), "w_up": w((L, D, F_)),
+                            "w_down": w((L, F_, D), out_scale)}
+        blocks["moe"] = moe
+        blocks["ln2"] = zeros((L, D))
+    elif cfg.d_ff and cfg.arch_type != "ssm":
         blocks["mlp"] = {"w_gate": w((L, D, F_)), "w_up": w((L, D, F_)),
                          "w_down": w((L, F_, D), out_scale)}
         blocks["ln2"] = zeros((L, D))
@@ -145,7 +158,6 @@ def from_jax(params_np: dict, cfg: ModelConfig, device=None) -> dict:
     port's parameters — same nesting, every leaf (``q_norm``/``k_norm``
     included), layer-stacked leaves unchanged, each in its own dtype (the
     SSM's ``dt_bias``/``A_log`` stay f32)."""
-    check_supported(cfg)
     dev = resolve_device(device)
 
     def conv(tree):
@@ -186,9 +198,10 @@ def block_full(h: torch.Tensor, p: dict, cfg: ModelConfig, *, window: int,
                positions: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     """One full-sequence layer (prefill, and PIC's fresh layers): causal
     attention over the sequence itself within ``window``, and/or the
-    Mamba2 mixer. Returns (h, outs) with the layer's RoPE'd keys and
-    values ``outs["k"]``/``outs["v"]`` ``[B, S, KV, hd]`` and its SSM and
-    conv states ``outs["ssm"]``/``outs["conv"]``."""
+    Mamba2 mixer, then the MLP or MoE. Returns (h, outs) with the layer's
+    RoPE'd keys and values ``outs["k"]``/``outs["v"]`` ``[B, S, KV, hd]``,
+    its SSM and conv states ``outs["ssm"]``/``outs["conv"]`` and, with
+    MoE, its load-balance loss ``outs["aux"]``."""
     outs = {}
     x = rmsnorm(h, p["ln1"], cfg.rmsnorm_eps)
     mixer = None
@@ -197,17 +210,17 @@ def block_full(h: torch.Tensor, p: dict, cfg: ModelConfig, *, window: int,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         outs["k"], outs["v"] = k, v
-        mixer = out_proj(attention(q, k, v, q_pos=positions, window=window),
-                         p["attn"])
+        mixer = out_proj(attention(q, k, v, q_pos=positions, window=window,
+                                   softcap=cfg.attn_logit_softcap), p["attn"])
         if cfg.hybrid:
             mixer = rmsnorm(mixer, p["attn_out_norm"], cfg.rmsnorm_eps)
     if cfg.has_ssm:
         s_out, (outs["ssm"], outs["conv"]) = ssm_mod.mamba2_forward(
             x, p["ssm"], cfg=cfg)
         mixer = _mix(mixer, s_out, p, cfg)
-    h = h + mixer
-    if "mlp" in p:
-        h = h + swiglu_mlp(rmsnorm(h, p["ln2"], cfg.rmsnorm_eps), p["mlp"])
+    h, aux = feed_forward(h + mixer, p, cfg)
+    if aux is not None:
+        outs["aux"] = aux
     return h, outs
 
 
@@ -242,8 +255,9 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def _run_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
               windows, frontend_embeds, keep: bool):
     """Every layer over the whole sequence (``block_full``): the final
-    hidden state ``[B, S, D]`` (before the final norm) and, with ``keep``,
-    each layer's cache outputs. The one layer loop of :func:`forward` and
+    hidden state ``[B, S, D]`` (before the final norm), with ``keep`` each
+    layer's cache outputs, and the layers' MoE losses summed (a 0-d f32;
+    zero without MoE). The one layer loop of :func:`forward` and
     :func:`prefill`, so the two give the same bits."""
     B, S = tokens.shape
     h = _embed(params, cfg, tokens, frontend_embeds)
@@ -254,12 +268,15 @@ def _run_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim,
                                 cfg.rope_theta)
     per_layer = []
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for l in range(cfg.n_layers):
         h, outs = block_full(h, layer(params, l), cfg, window=windows[l],
                              positions=positions, cos=cos, sin=sin)
+        if "aux" in outs:
+            aux = aux + outs.pop("aux")
         if keep:
             per_layer.append(outs)
-    return h, per_layer
+    return h, per_layer, aux
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -267,8 +284,11 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             long_context: bool = False, return_hidden: bool = False):
     """Training / scoring pass over ``tokens`` ``[B, S]``: (logits f32
     ``[B, S, V]``, aux), or with ``return_hidden`` (the hidden state
-    ``[B, S, D]`` before the final norm, aux). ``aux`` is the MoE load
-    loss JAX sums over layers: a 0-d f32 zero, as the port has no MoE.
+    ``[B, S, D]`` before the final norm, aux). ``aux`` is the MoE
+    load-balance loss summed over layers as JAX sums it, a 0-d f32 (zero
+    for a model without MoE). ``frontend_embeds`` ``[B, Sf, D]`` replace
+    the first Sf positions' token embeddings (the stubbed audio / vision
+    frontend).
 
     Windows are the layers' at S (JAX's). The layer loop is
     :func:`prefill`'s, so on the same weights and tokens the logits equal
@@ -277,11 +297,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     becomes ``torch.utils.checkpoint``) and ``unroll`` (a ``lax.scan``
     knob; eager layers need none) are not accepted.
     """
-    check_supported(cfg)
     S = tokens.shape[1]
-    h, _ = _run_full(params, cfg, tokens, _windows(cfg, S, long_context),
-                     frontend_embeds, keep=False)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    h, _, aux = _run_full(params, cfg, tokens,
+                          _windows(cfg, S, long_context), frontend_embeds,
+                          keep=False)
     if return_hidden:
         return h, aux
     return logits_of(params, cfg, h), aux
@@ -297,13 +316,12 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``"conv"`` ``[L, B, D_CONV-1, conv_dim]`` for SSM layers. Attention
     windows are the layers' windows at ``max_len``, as the JAX ``prefill``
     takes them. ``logits_last_only`` computes the last position's logits
-    only."""
-    check_supported(cfg)
+    only. ``frontend_embeds`` as in :func:`forward`."""
     B, S = tokens.shape
     max_len = max_len or S
-    h, per_layer = _run_full(params, cfg, tokens,
-                             _windows(cfg, max_len, long_context),
-                             frontend_embeds, keep=True)
+    h, per_layer, _ = _run_full(params, cfg, tokens,
+                                _windows(cfg, max_len, long_context),
+                                frontend_embeds, keep=True)
     logits = logits_of(params, cfg, h[:, -1:] if logits_last_only else h)
     cache = {"length": torch.full((B,), S, dtype=torch.int32,
                                   device=tokens.device)}
@@ -356,7 +374,6 @@ def extend(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     model raises ``ValueError``. Returns (logits ``[B, T, V]``, cache with
     ``length + T``).
     """
-    check_supported(cfg)
     if cfg.has_ssm or not cfg.has_attention:
         raise ValueError("extend() supports attention caches; use "
                          "prefill/decode for SSM state")
@@ -381,9 +398,9 @@ def extend(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         vc[l][rows, at] = v.to(vc.dtype)
         o = ops.flash_attention(
             q.to(torch.promote_types(q.dtype, kc.dtype)).contiguous(),
-            kc[l], vc[l], q_pos=positions, window=windows[l], kv_len=kv_len)
-        h = h + out_proj(o, p["attn"])
-        h = h + swiglu_mlp(rmsnorm(h, p["ln2"], cfg.rmsnorm_eps), p["mlp"])
+            kc[l], vc[l], q_pos=positions, window=windows[l], kv_len=kv_len,
+            softcap=cfg.attn_logit_softcap)
+        h, _ = feed_forward(h + out_proj(o, p["attn"]), p, cfg)
     new_cache = dict(cache)
     new_cache["length"] = kv_len
     return logits_of(params, cfg, h), new_cache
@@ -406,7 +423,6 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     step. Returns (logits ``[B, V]``, cache with ``length + 1`` and the
     new SSM states).
     """
-    check_supported(cfg)
     B = token.shape[0]
     h = params["embed"][token][:, None].to(dtype_of(cfg))
     length = cache["length"]
@@ -432,7 +448,8 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
             vc[l][rows, at] = v[:, 0].to(vc.dtype)
             o = ops.flash_decode(
                 q[:, 0].to(torch.promote_types(q.dtype, kc.dtype))
-                .contiguous(), kc[l], vc[l], kv_len, windows[l])
+                .contiguous(), kc[l], vc[l], kv_len, windows[l],
+                softcap=cfg.attn_logit_softcap)
             mixer = out_proj(o[:, None], p["attn"])
             if cfg.hybrid:
                 mixer = rmsnorm(mixer, p["attn_out_norm"], cfg.rmsnorm_eps)
@@ -443,10 +460,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
             states.append(st)
             convs.append(cv)
             mixer = _mix(mixer, s_out, p, cfg)
-        h = h + mixer
-        if "mlp" in p:
-            h = h + swiglu_mlp(rmsnorm(h, p["ln2"], cfg.rmsnorm_eps),
-                               p["mlp"])
+        h, _ = feed_forward(h + mixer, p, cfg)
     logits = logits_of(params, cfg, h)[:, 0]
     if cfg.has_ssm:
         new_cache["ssm"] = torch.stack(states)
@@ -473,7 +487,6 @@ def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
     paged decode kernel. Returns (logits ``[B, V]``, cache with ``length
     + 1``).
     """
-    check_supported(cfg)
     if cfg.has_ssm or not cfg.has_attention:
         raise ValueError("paged decode carries attention KV only; use "
                          "decode_step for SSM state")
@@ -503,9 +516,9 @@ def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
         # (a bf16 model over recovered f32 KV), as jnp promotion does
         o = ops.flash_decode_paged(
             q[:, 0].to(torch.promote_types(q.dtype, pk.dtype)).contiguous(),
-            pk[l], pv[l], page_idx, span, window=windows[l])
-        h = h + out_proj(o[:, None], p["attn"])
-        h = h + swiglu_mlp(rmsnorm(h, p["ln2"], cfg.rmsnorm_eps), p["mlp"])
+            pk[l], pv[l], page_idx, span, window=windows[l],
+            softcap=cfg.attn_logit_softcap)
+        h, _ = feed_forward(h + out_proj(o[:, None], p["attn"]), p, cfg)
     logits = logits_of(params, cfg, h)[:, 0]
     new_cache = dict(cache)
     new_cache["length"] = length + 1

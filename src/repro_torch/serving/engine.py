@@ -48,7 +48,6 @@ from repro_torch.core.collector import KVCollector
 from repro_torch.core.rounds import (AgentState, AllGather, AllGatherTrace,
                                      GatherTopology, Round, round_prompt)
 from repro_torch.core.segments import PromptLayout, SegmentIndex
-from repro_torch.models.layers import check_supported
 from repro_torch.models.transformer import decode_step, decode_step_paged
 from repro_torch.serving.kvpool import PagedKVPool
 from repro_torch.serving.planner import RoundPlan
@@ -104,7 +103,6 @@ class ServingEngine:
         keep_recovered: bool = False,
         keep_logits: bool = False,
     ):
-        check_supported(cfg)
         if isinstance(policy, str):
             policy = get_policy(policy)
         if policy.requires_attention and (not cfg.has_attention

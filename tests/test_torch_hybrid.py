@@ -175,19 +175,23 @@ def test_paged_decode_refuses_a_binding_window(hymba):
 
 
 def test_check_supported_admits_hybrid_and_refuses_the_rest():
-    from repro_torch.models.layers import check_supported
+    """The port once refused MoE, the logit soft cap and frontends here
+    (``layers.check_supported``); every feature is ported now and the
+    check is gone, so every arch id of the JAX package constructs: random
+    smoke weights, and the default engine on them (an SSM or hybrid model
+    through its recompute fallback)."""
+    from repro.configs import list_archs
 
-    cfg = torch_smoke("hymba-1.5b")
-    check_supported(cfg)
-    check_supported(cfg.replace(hybrid=False, arch_type="ssm"))
-    # qk_norm (layers.project_qkv) and tied embeddings
-    # (transformer.logits_of) are ported; the rest still refuses
-    check_supported(cfg.replace(qk_norm=True))
-    check_supported(cfg.replace(tie_embeddings=True))
-    for bad in (dict(n_experts=4, top_k=2), dict(attn_logit_softcap=30.0),
-                dict(frontend="audio")):
-        with pytest.raises(NotImplementedError):
-            check_supported(cfg.replace(**bad))
+    from repro_torch.configs import list_archs as torch_archs
+
+    assert torch_archs() == list_archs()
+    for arch in list_archs():
+        cfg = torch_smoke(arch)
+        params = init_params(cfg, 0, device="cpu")
+        engine = TorchEngine(params, cfg)
+        want = ("recompute" if cfg.has_ssm or not cfg.has_attention
+                else "tokendance")
+        assert engine.policy.name == want, arch
 
 
 # ------------------------------------------------------------------ engine

@@ -1306,3 +1306,109 @@ def test_gpu_attention_kernels_at_qwen_head_layouts(cuda, dtype, H, KV, hd):
                                                      window=100),
                       "flash_decode_paged window")
     assert torch.equal(paged_win, win), "windowed dense != paged decode"
+
+
+# ------------------------------------------------------- the logit soft cap
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_DTYPES)
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 6, 7, 8])
+@pytest.mark.parametrize("case", ["c30", "saturating"])
+def test_gpu_attention_kernels_capped(cuda, dtype, hd, G, case):
+    """The four attention wrappers with a logit soft cap (the capped
+    instances), each against its plain version at the card's tolerance and
+    twice for the same bits: ``flash_attention`` causal and at selected
+    positions with a ragged ``kv_len``, ``flash_prefill_paged`` over pages
+    and a tail (bit-equal to the dense kernel on the gathered rows),
+    ``flash_decode_paged`` and ``flash_decode`` on the same rows (bit-equal
+    to each other, with and without a binding window). ``c30`` is Grok's
+    cap on unit-scale scores; ``saturating`` scales q by 300 so that |s| is
+    far past c = 30 and the tanh saturates. Each capped result differs
+    from the uncapped kernel's."""
+    KV = 2
+    H = G * KV
+    g = torch.Generator(device=cuda).manual_seed(hd * G + len(case))
+    B, S, c = 2, 150, 30.0
+    mult = 300.0 if case == "saturating" else 1.0
+
+    def rnd(*shape, m=1.0):
+        return (m * torch.randn(*shape, generator=g, device=cuda)).to(dtype)
+
+    def twice(fn, what):
+        got = fn()
+        assert torch.equal(fn(), got), f"{what}: two calls differ"
+        return got
+
+    def capped(fn, plain, what):
+        got = twice(lambda: fn(softcap=c), what)
+        _held(got, plain(softcap=c), dtype, f"{what} capped {case} {H}/{KV} "
+              f"hd {hd}")
+        assert not torch.equal(got, fn()), f"{what}: the cap changed nothing"
+        return got
+
+    q, k, v = rnd(B, S, H, hd, m=mult), rnd(B, S, KV, hd), rnd(B, S, KV, hd)
+    full = torch.arange(S, device=cuda, dtype=torch.int32).expand(
+        B, S).contiguous()
+    sel = torch.sort(torch.randperm(S, generator=g, device=cuda)[:64]
+                     ).values.to(torch.int32).expand(B, 64).contiguous()
+    kv_len = torch.tensor([S, 100], device=cuda, dtype=torch.int32)
+    for qq, qp, kl, what in ((q, full, None, "flash_prefill fresh"),
+                             (q[:, :64].contiguous(), sel, kv_len,
+                              "flash_prefill selected")):
+        capped(lambda **kw: ops.flash_attention(qq, k, v, q_pos=qp, window=S,
+                                                kv_len=kl, **kw),
+               lambda **kw: ref.flash_attention_ref(qq, k, v, q_pos=qp,
+                                                    window=S, kv_len=kl,
+                                                    **kw), what)
+
+    nbh, bt, T = 5, 32, 32
+    P = B * nbh + 3
+    pk, pv = rnd(P, bt, KV, hd), rnd(P, bt, KV, hd)
+    pidx = torch.randperm(P, generator=g, device=cuda)[: B * nbh].reshape(
+        B, nbh).to(torch.int32)
+    tk, tv = rnd(B, T, KV, hd), rnd(B, T, KV, hd)
+    span = nbh * bt
+    qp_ = rnd(B, span + T, H, hd, m=mult)
+    got = capped(lambda **kw: ops.flash_prefill_paged(
+        qp_, pk, pv, pidx, tk, tv, span_len=span, **kw),
+        lambda **kw: ref.flash_attention_paged_ref(
+            qp_, pk, pv, pidx, tk, tv, span_len=span, **kw),
+        "flash_prefill_paged")
+    kd, vd = ref.paged_kv_ref(pk, pv, pidx, tk, tv, span)
+    pos = torch.arange(span + T, device=cuda, dtype=torch.int32).expand(
+        B, span + T).contiguous()
+    assert torch.equal(got, ops.flash_attention(
+        qp_, kd.contiguous(), vd.contiguous(), q_pos=pos,
+        window=2 ** 31 - 1, softcap=c)), "capped paged prefill != dense"
+
+    nbt = 18
+    qd = rnd(B, H, hd, m=mult)
+    kk, vv = rnd(B, nbt * bt, KV, hd), rnd(B, nbt * bt, KV, hd)
+    perm = torch.randperm(B * nbt, generator=g, device=cuda)
+    dpk = torch.empty(B * nbt, bt, KV, hd, device=cuda, dtype=dtype)
+    dpv = torch.empty_like(dpk)
+    dpk[perm] = kk.reshape(B * nbt, bt, KV, hd)
+    dpv[perm] = vv.reshape(B * nbt, bt, KV, hd)
+    didx = perm.reshape(B, nbt).to(torch.int32).contiguous()
+    lens = torch.tensor([545, 33], device=cuda, dtype=torch.int32)
+    for window in (0, 100):
+        paged = capped(lambda **kw: ops.flash_decode_paged(
+            qd, dpk, dpv, didx, lens, window=window, **kw),
+            lambda **kw: ref.flash_decode_paged_ref(
+                qd, dpk, dpv, didx, lens, window=window, **kw),
+            f"flash_decode_paged window {window}")
+        dense = capped(lambda **kw: ops.flash_decode(
+            qd, kk, vv, lens, window or nbt * bt, **kw),
+            lambda **kw: ref.flash_decode_ref(qd, kk, vv, lens,
+                                              window or nbt * bt, **kw),
+            f"flash_decode window {window}")
+        assert torch.equal(dense, paged), "capped dense decode != paged"
+
+
+@pytest.mark.gpu
+def test_gpu_attention_wrappers_refuse_a_negative_cap(cuda):
+    q = torch.zeros(1, 4, 2, 64, device=cuda)
+    kv = torch.zeros(1, 4, 1, 64, device=cuda)
+    pos = torch.arange(4, device=cuda, dtype=torch.int32)[None]
+    with pytest.raises(ValueError, match="softcap"):
+        ops.flash_attention(q, kv, kv, q_pos=pos, window=4, softcap=-1.0)

@@ -31,8 +31,7 @@ from repro_torch.serving import ServingEngine as TorchEngine
 
 torch.set_num_threads(1)
 
-PORTED = ["qwen2.5-7b", "qwen2.5-14b", "qwen2-72b", "qwen3-4b",
-          "hymba-1.5b", "gemma3-1b", "gemma3-12b"]
+PORTED = list(jconfigs.list_archs())
 B, S, BT = 2, 64, 32
 
 
@@ -85,8 +84,7 @@ def test_configs_equal_jax_field_by_field(arch):
 
 
 def test_registry_and_input_shapes_equal_jax():
-    assert set(tconfigs.list_archs()) == set(PORTED)
-    assert set(tconfigs.list_archs()) <= set(jconfigs.list_archs())
+    assert tconfigs.list_archs() == jconfigs.list_archs() == tuple(PORTED)
     assert {k: dataclasses.asdict(v)
             for k, v in tconfigs.INPUT_SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in jconfigs.INPUT_SHAPES.items()}

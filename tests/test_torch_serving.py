@@ -297,8 +297,13 @@ def test_entry_points_need_a_device_when_no_card():
     # the cross-round incremental restore is ported: the JAX default
     # constructs (tests/test_torch_histpool.py serves it)
     assert TorchTokenDance().incremental
-    with pytest.raises(NotImplementedError):
-        init_params(cfg.replace(n_experts=4, top_k=2), 0, device="cpu")
+    # MoE is ported: init_params builds the moe leaves, where it once
+    # raised NotImplementedError
+    moe = init_params(cfg.replace(n_experts=4, top_k=2), 0,
+                      device="cpu")["blocks"]
+    assert "moe" in moe and "mlp" not in moe
+    assert moe["moe"]["w_gate"].shape == (cfg.n_layers, 4, cfg.d_model,
+                                          cfg.d_ff)
 
 
 # ------------------------------------------------------------ serve(...)
