@@ -4,7 +4,7 @@
 
 Phases (each prints its lines; any failure exits non-zero):
   1. the card (``nvidia-smi`` name and power limit, torch's device name);
-  2. the build of the eight CUDA kernels from the seven sources of
+  2. the build of the nine CUDA kernels from the eight sources of
      ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at
      once), with ptxas' registers, shared memory and spills;
   3. the main path: Qwen2.5-7B at full width (28 layers, bf16, random
@@ -121,8 +121,9 @@ Phases (each prints its lines; any failure exits non-zero):
   12f. [mamba2-2.7b] Mamba2-2.7B at full width and depth (64 layers, 80
      SSM heads of 64, state 128): TokenDance falls back to recompute and
      the dense decode loop; no kernel launched and no plain version run,
-     finite first-token logits, nothing persistent, the prefix policy
-     refused at construction;
+     finite first-token logits, nothing persistent; then the prefix
+     policy, constructed as in JAX, recomputing every round bit-equal to
+     the fallback (nothing cached);
   12g. [musicgen-large] MusicGen-large at full width (48 layers, KV = H =
      32, G 1, hd 64) served, then ``prefill`` of tokens [8, 224] with
      seeded audio frontend embeddings [8, 64, 2048] on the first
@@ -152,6 +153,24 @@ Phases (each prints its lines; any failure exits non-zero):
      binding window of 1024 and ragged lengths, and at Sk 4096 (more
      than 32 splits a pair); CUDA-event times of kernel, plain version
      and SDPA with a mask in both types, and the host time of one call;
+  13a. [train] Qwen3-4B at full width and depth (36 layers, bf16 weights
+     random from seed 0) trained by ``repro_torch.training`` on
+     ``SyntheticTokens`` batches of 1 x 4096 with ``remat=True``: one
+     step with the counts zeroed before and read after (72
+     ``flash_prefill``, 36 ``flash_prefill_bwd``, no plain version), one
+     step with CUDA events between forward, backward and optimizer, then
+     3 steps through ``train`` (tokens/s); finite losses; the peak memory;
+     the weights freed. Then the backward kernel against its plain
+     version at that layer's shape (q [1, 4096, 32, 128], k/v [1, 4096,
+     8, 128], causal) in bf16 and f32, twice for the same bits, timed
+     beside its bound and SDPA's backward, and at the edges (head dims 64
+     / 128 / 256, G 1 / 4 / 8, binding windows, ragged kv_len, softcap
+     30); [train parity]: one step's gradients at full width cut to 2
+     layers with the kernels against the same step with attention routed
+     to the plain forward and backward (a spy on ``ops``), leaf by leaf;
+     [examples]: the four example twins (``train_small``,
+     ``multi_agent_serving``, ``slo_admission``, ``continuous_serving``)
+     at small arguments on the card;
   14. the f32 smoke configurations (Qwen2.5-7B with TokenDance and with
      the prefix policy, Hymba-1.5B with its recompute fallback,
      Qwen2.5-14B, Qwen3-4B, Qwen2-72B, Gemma3-1B, Gemma3-12B, Grok-1,
@@ -197,6 +216,9 @@ REPLACES = {
     "rope_align": "src/repro/kernels/rope_align.py:47",
     "block_diff": "src/repro/kernels/block_diff.py:43",
     "flash_prefill": "src/repro/kernels/flash_prefill.py:130",
+    # the backward of that kernel's function (no TPU kernel: XLA derives it
+    # from gqa_attention, src/repro/models/layers.py:94)
+    "flash_prefill_bwd": "src/repro/kernels/flash_prefill.py:130",
     "flash_prefill_paged": "src/repro/kernels/flash_prefill.py:272",
     "flash_decode_paged": "src/repro/kernels/flash_decode.py:231",
     "flash_decode": "src/repro/kernels/flash_decode.py:101",
@@ -1832,9 +1854,10 @@ def ssm_phase(dev):
     TokenDance falls back to the recompute policy and the dense decode
     loop; counts zeroed before and read after — no kernel launched (no
     attention, no KV to align, compress or restore) and no plain version
-    run; finite first-token logits; the prefix policy refused at
-    construction; the peak memory (the SSD chunk tensors at 80 heads of
-    64, state 128); the weights freed."""
+    run; finite first-token logits; the peak memory (the SSD chunk
+    tensors at 80 heads of 64, state 128). Then the prefix policy on the
+    same weights and trace: constructed (as in JAX), every round
+    recomputed, bit-equal to the fallback; the weights freed."""
     from repro_torch.configs import get_config
     from repro_torch.core.rounds import generate_trace
     from repro_torch.kernels import ops
@@ -1856,13 +1879,6 @@ def ssm_phase(dev):
     weights = torch.cuda.memory_allocated() - before
     trace = generate_trace("agent_society", 8, 3, cfg.vocab_size, seed=0,
                            jitter_hist=False)
-    try:
-        ServingEngine(params, cfg, "prefix")
-    except ValueError as e:
-        say(f"[{tag}] prefix policy refused at construction: {e}")
-    else:
-        raise AssertionError("the prefix policy constructed on an "
-                             "attention-free model")
     engine = ServingEngine(params, cfg, keep_logits=True)
     assert engine.policy.name == "recompute", engine.policy.name
     torch.cuda.reset_peak_memory_stats()
@@ -1889,7 +1905,25 @@ def ssm_phase(dev):
         f"{gib(weights):.2f})")
     assert not any(launches.values()), f"kernels launched: {launches}"
     assert not any(plain.values()), f"plain versions ran: {plain}"
-    del engine, stats, params
+    # the prefix policy: constructed, as in JAX; no attention KV to cache,
+    # so every round recomputes, bit-equal to the recompute fallback
+    pengine = ServingEngine(params, cfg, "prefix", keep_logits=True)
+    ops.reset_launches()
+    pstats = pengine.serve(generate_trace("agent_society", 8, 3,
+                                          cfg.vocab_size, seed=0,
+                                          jitter_hist=False))
+    torch.cuda.synchronize()
+    assert pengine.policy.name == "prefix", pengine.policy.name
+    assert not any(ops.LAUNCHES.values()) and \
+        not any(ops.PLAIN_CALLS.values()), dict(ops.LAUNCHES)
+    for a, b in zip(pstats, stats):
+        assert np.array_equal(a.outputs, b.outputs), a.round_idx
+        assert np.array_equal(a.first_logits, b.first_logits), a.round_idx
+        assert a.persistent_bytes == 0 and not a.reuse.get("prefix_len")
+    say(f"[{tag}] prefix policy: constructed, every round recomputed "
+        f"(nothing cached, no prefix reused), outputs and first-token "
+        f"logits bit-equal to the recompute fallback's")
+    del engine, pengine, stats, pstats, params
     freed(tag, before + weights, weights)
     say(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s")
 
@@ -2229,6 +2263,313 @@ def decode_kernel(dev, launches, kept, dense_kept):
         launches=launches["flash_decode"], **times[("hybrid", q.dtype)])
 
 
+# ------------------------------------------------------------ training
+def bwd_times(timer, q, k, v, out, dout, q_pos, window, kv_len=None,
+              softcap=0.0):
+    """CUDA-event times of ``ops.flash_attention_bwd``, its plain version
+    and, for a plain causal call, SDPA's backward (SDPA's forward plus
+    backward minus its forward, GQA, ``is_causal``); and its bound: q, k,
+    v, out and dout read once, dq, dk and dv written once, and 2.5 times
+    the forward's products over the allowed pairs (dS and dP, dQ, dK, dV:
+    five products where the forward has two) at the input type's peak."""
+    from repro_torch.kernels import ops, ref
+
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    kw = dict(q_pos=q_pos, window=window, kv_len=kv_len, softcap=softcap)
+    n_bytes = nbytes(q, k, v, out, dout, q_pos, kv_len) + nbytes(q, k, v)
+    flops = 2.5 * 4 * hd * H * allowed_cols(q_pos, window, Sk, kv_len)
+    bms, by = bound(n_bytes, flops, q.dtype, split_tf32=True)
+    library = None
+    causal = (Sq == Sk and kv_len is None and window >= Sk and not softcap
+              and torch.equal(q_pos, torch.arange(
+                  Sq, device=q.device, dtype=torch.int32).expand(B, Sq)))
+    if causal:
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        dot = dout.transpose(1, 2)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        def sdpa_both():
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+            return torch.autograd.grad(o, (qt, kt, vt), dot)
+
+        library = timer(sdpa_both, reps=7) - timer(sdpa_fwd, reps=7)
+    return dict(
+        ms=timer(lambda: ops.flash_attention_bwd(q, k, v, out, dout, **kw),
+                 reps=7),
+        plain_ms=timer(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, out, dout, **kw), reps=5),
+        library_ms=library, bound_ms=bms, bound_by=by,
+        bound_cuda_core_ms=bound(n_bytes, flops, q.dtype)[0])
+
+
+def bwd_case(dev, g, dtype, B, Sq, Sk, H, KV, hd, window=None, kv_len=None,
+             softcap=0.0, qs=1.0):
+    """Inputs of one backward call, its result and its plain version's,
+    with the two calls' bit equality checked: (errs, got, inputs)."""
+    from repro_torch.kernels import ops, ref
+
+    q = (qs * torch.randn(B, Sq, H, hd, generator=g, device=dev)).to(dtype)
+    k = torch.randn(B, Sk, KV, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Sk, KV, hd, generator=g, device=dev).to(dtype)
+    dout = torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dtype)
+    q_pos = (torch.arange(Sq, device=dev, dtype=torch.int32) + (Sk - Sq)) \
+        .expand(B, Sq).contiguous()
+    kl = (None if kv_len is None else
+          torch.tensor(kv_len, device=dev, dtype=torch.int32))
+    kw = dict(q_pos=q_pos, window=window or Sk, kv_len=kl, softcap=softcap)
+    out = ops.flash_attention(q, k, v, **kw)
+    got = ops.flash_attention_bwd(q, k, v, out, dout, **kw)
+    again = ops.flash_attention_bwd(q, k, v, out, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        ("flash_prefill_bwd: two calls differ", q.shape, k.shape, kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+    errs = [check("flash_prefill_bwd", a, b, dtype)
+            for a, b in zip(got, want)]
+    return errs, (q, k, v, out, dout, kw)
+
+
+def train_kernel(dev, launches):
+    """[train] the backward kernel (``flash_prefill_bwd``) against its
+    plain version at Qwen3-4B's layer shape in training, q [1, 4096, 32,
+    128] and k/v [1, 4096, 8, 128], causal, in bf16 and f32: max abs
+    errors of dq, dk and dv, two calls bit-equal, CUDA-event times beside
+    its bound and SDPA's backward; then at the edges (head dims 64 and
+    256 with a binding window and a ragged kv_len, soft cap 30, G 1 and
+    G 8). Returns its kernel-table row (``launches``: a training step's)."""
+    timer = Timer(dev)
+    g = torch.Generator(device=dev).manual_seed(24)
+    errs, times = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        e, args = bwd_case(dev, g, dt, 1, 4096, 4096, 32, 8, 128)
+        errs[dt] = max(e)
+        q, k, v, out, dout, kw = args
+        times[dt] = bwd_times(timer, q, k, v, out, dout, **kw)
+        say(f"[train] flash_prefill_bwd q {list(q.shape)} k/v "
+            f"{list(k.shape)} causal ({dt}): max abs err dq {e[0]:.3g} dk "
+            f"{e[1]:.3g} dv {e[2]:.3g}, two calls bit-equal; "
+            f"{times_line(times[dt])}")
+        del q, k, v, out, dout, args
+    edges = [  # (B, Sq, Sk, H, KV, hd, window, kv_len, softcap, q scale)
+        (2, 1000, 1000, 8, 8, 64, 300, [1000, 777], 0.0, 1.0),     # G 1
+        (2, 600, 600, 16, 2, 256, 200, [600, 450], 0.0, 1.0),      # G 8
+        (1, 700, 700, 32, 8, 128, None, None, 30.0, 8.0),          # capped
+        (2, 333, 333, 16, 2, 64, 100, [333, 301], 30.0, 8.0),
+        (1, 257, 257, 8, 1, 256, None, None, 30.0, 8.0)]
+    for dt in (torch.bfloat16, torch.float32):
+        for B, Sq, Sk, H, KV, hd, w, kl, c, qs in edges:
+            e, _ = bwd_case(dev, g, dt, B, Sq, Sk, H, KV, hd, w, kl, c, qs)
+            say(f"[train] flash_prefill_bwd edge B {B} S {Sq} H {H} KV {KV} "
+                f"hd {hd} window {w} kv_len {kl} softcap {c} ({dt}): max "
+                f"abs err dq {e[0]:.3g} dk {e[1]:.3g} dv {e[2]:.3g}, two "
+                f"calls bit-equal")
+    return dict(name="flash_prefill_bwd", shape=[1, 4096, 32, 128, 8],
+                max_abs_err=errs[torch.bfloat16],
+                max_abs_err_f32=errs[torch.float32], launches=launches,
+                call="Qwen3-4B training layer, bf16",
+                **times[torch.bfloat16])
+
+
+def train_phase(dev):
+    """[train]: Qwen3-4B trained at full width and depth (36 layers, d
+    2560, 32 query heads over 8, head dim 128, vocab 151936; bf16 weights
+    random from seed 0) on ``SyntheticTokens`` batches of 1 x 4096 (the
+    ``train_4k`` length), ``remat=True``: one step with the launch counts
+    zeroed before and read after (72 ``flash_prefill``, 36
+    ``flash_prefill_bwd``, no plain version), one step with CUDA events
+    between forward, backward and optimizer, then 3 steps through
+    ``train`` timed on the host clock (tokens/s); every loss finite; the
+    peak memory. Then the model is freed. Returns the launches of a
+    step."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.training import (AdamWConfig, DataConfig,
+                                      SyntheticTokens, init_adamw,
+                                      make_train_step, train)
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-4b")
+    S, B = INPUT_SHAPES["train_4k"].seq_len, 1
+    say(f"[train] {cfg.name}: {cfg.n_layers} of {cfg.n_layers} layers (no "
+        f"depth cut), d {cfg.d_model}, {cfg.n_heads} query heads over "
+        f"{cfg.n_kv_heads}, head dim {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+        f"~{cfg.param_count() / 1e9:.2f} B params; batch {B} x {S}, "
+        f"remat, AdamW with f32 moments")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - before
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                      global_batch=B, seed=0))
+    # JAX's defaults: the learning rate warms up over 100 steps, 3e-6 a
+    # step (AdamW's first updates are about lr in every weight's sign)
+    opt = AdamWConfig()
+
+    def batch(i):
+        toks, mask = data.batch(i)
+        return (torch.as_tensor(toks, device=dev),
+                torch.as_tensor(mask, device=dev))
+
+    events = {}
+
+    def mark(what):
+        events[what] = torch.cuda.Event(enable_timing=True)
+        events[what].record()
+
+    state = init_adamw(params)
+    step = make_train_step(cfg, opt, mark=mark)
+    ops.reset_launches()
+    params, state, m = step(params, state, *batch(0))
+    torch.cuda.synchronize()
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+    say(f"[train] step 0 (untimed): loss {float(m['loss']):.4f}, grad norm "
+        f"{float(m['grad_norm']):.4f}; launches {launches}  plain-version "
+        f"calls {plain}")
+    assert launches["flash_prefill"] == 2 * cfg.n_layers, launches
+    assert launches["flash_prefill_bwd"] == cfg.n_layers, launches
+    assert sum(launches.values()) == 3 * cfg.n_layers, launches
+    assert not any(plain.values()), f"plain versions ran: {plain}"
+    assert np.isfinite(float(m["loss"])), m
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    params, state, m = step(params, state, *batch(1))
+    torch.cuda.synchronize()
+    t_fwd = start.elapsed_time(events["forward"])
+    t_bwd = events["forward"].elapsed_time(events["backward"])
+    t_opt = events["backward"].elapsed_time(events["optimizer"])
+    say(f"[train] step 1: loss {float(m['loss']):.4f}; forward {t_fwd:.1f} "
+        f"ms, backward {t_bwd:.1f} ms (the {cfg.n_layers} layers' forward "
+        f"again, under remat, included), optimizer {t_opt:.1f} ms, step "
+        f"{t_fwd + t_bwd + t_opt:.1f} ms (CUDA events)")
+    assert np.isfinite(float(m["loss"])), m
+    del state, m
+    n = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train(cfg, opt, (data.batch(i) for i in range(2, 2 + n)), n,
+                params=params, log_every=1, device=dev,
+                log=lambda line: say(f"[train] {line}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[train] {n} steps through train(): {wall:.2f} s, "
+        f"{n * B * S / wall:.0f} tokens/s (host clock, AdamW state set-up "
+        f"and the loss read-back each step included); losses "
+        f"{[round(x, 4) for x in res.losses]}; peak device memory "
+        f"{gib(peak):.2f} GiB (weights {gib(weights):.2f})")
+    assert res.steps == n and all(np.isfinite(res.losses)), res.losses
+    del res, params
+    freed("train", before + weights, weights)
+    say(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def train_parity(dev):
+    """[train parity]: one step's gradients of Qwen3-4B at full width cut
+    to 2 layers (bf16, seed 0, a 1 x 4096 batch) with the kernels, against
+    the same step with attention routed to the plain forward and backward
+    by a spy on ``ops`` (``_flash_forward`` and ``flash_attention_bwd``
+    replaced for the call), leaf by leaf with the bf16 tolerance; the q, k
+    and v projections' gradients nonzero."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import init_params
+    from repro_torch.training import DataConfig, SyntheticTokens
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_loop import value_and_grad
+
+    cfg = get_config("qwen3-4b").replace(n_layers=2)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    params = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - before
+    toks, mask = SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=4096, global_batch=1,
+        seed=1)).batch(0)
+    toks = torch.as_tensor(toks, device=dev)
+    mask = torch.as_tensor(mask, device=dev)
+    ops.reset_launches()
+    loss, _, grads = value_and_grad(params, cfg, toks, mask)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_prefill_bwd"] == 2, dict(ops.LAUNCHES)
+    fwd, bwd = ops._flash_forward, ops.flash_attention_bwd
+
+    def plain_fwd(q, k, v, q_pos, kv_len, window, softcap):
+        return ref.flash_attention_ref(q, k, v, q_pos=q_pos, window=window,
+                                       kv_len=kv_len, softcap=softcap)
+
+    ops._flash_forward = plain_fwd
+    ops.flash_attention_bwd = ref.flash_attention_bwd_ref
+    try:
+        ops.reset_launches()
+        ploss, _, pgrads = value_and_grad(params, cfg, toks, mask)
+        torch.cuda.synchronize()
+        assert not any(ops.LAUNCHES.values()), dict(ops.LAUNCHES)
+    finally:
+        ops._flash_forward, ops.flash_attention_bwd = fwd, bwd
+    def held(path, a, b):
+        """(max abs err within the bf16 tolerance, that error over the
+        leaf's largest |g|)."""
+        err = check("grad " + ".".join(path), a, b, torch.bfloat16)
+        return err, err / max(b.float().abs().max().item(), 1e-30)
+
+    errs = [held(path, a, b) for (path, a), (_, b) in
+            zip(tree_leaves(grads), tree_leaves(pgrads))]
+    worst, worst_rel = max(e for e, _ in errs), max(r for _, r in errs)
+    for w in ("wq", "wk", "wv", "q_norm", "k_norm"):
+        assert grads["blocks"]["attn"][w].float().abs().max() > 0, w
+    say(f"[train parity] {cfg.name} at full width, 2 layers, bf16, 1 x 4096: "
+        f"loss {float(loss):.6f} with the kernels, {float(ploss):.6f} with "
+        f"the plain attention; {len(tree_leaves(grads))} gradient leaves "
+        f"within the bf16 tolerance, max abs err {worst:.3g}, max err over "
+        f"each leaf's largest |g| {worst_rel:.3g}; wq, wk, wv, q_norm and "
+        f"k_norm gradients nonzero")
+    del params, grads, pgrads
+    freed("train parity", before + weights, weights)
+
+
+def examples_phase():
+    """[examples] the four example twins on the card at small arguments,
+    each run as ``python -m`` would run it (its printed lines follow)."""
+    import runpy
+
+    t_phase = time.perf_counter()
+    runs = [
+        ("train_small", ["--steps", "20", "--seq-len", "64", "--batch", "4",
+                         "--out", str(ROOT / "build" / "train_small_ckpt")]),
+        ("multi_agent_serving", ["--agents", "3", "--rounds", "2",
+                                 "--policies", "tokendance,prefix"]),
+        # 6 agents: the capacity model's queueing term admits none of 3
+        # at the default SLO (a round's load is 1.2 / n of the server)
+        ("slo_admission", ["--agents", "6", "--rounds", "2"]),
+        ("continuous_serving", ["--agents", "4", "--rounds", "2",
+                                "--stagger", "0,8"]),
+    ]
+    argv = sys.argv
+    try:
+        for name, args in runs:
+            say(f"[examples] python -m repro_torch.examples.{name} "
+                f"{' '.join(args)}")
+            sys.argv = [name] + args
+            runpy.run_module(f"repro_torch.examples.{name}",
+                             run_name="__main__")
+            sys.stdout.flush()
+    finally:
+        sys.argv = argv
+    say(f"[examples] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------------------- phase 6
 def smoke_parity(dev):
     from repro_torch.configs import get_smoke_config
@@ -2506,6 +2847,12 @@ def main() -> int:
     hybrid_prefill(dev, hkept)
     table += table_rows([decode_kernel(dev, hlaunches, hkept,
                                        kept["flash_decode_dense"])])
+    del hkept
+    train_launches = train_phase(dev)
+    table += table_rows([train_kernel(dev,
+                                      train_launches["flash_prefill_bwd"])])
+    train_parity(dev)
+    examples_phase()
     smoke_parity(dev)
     table += table_rows(restore(dev))
     say(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")

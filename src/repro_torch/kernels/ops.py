@@ -16,6 +16,12 @@ stream),
 launches on the current stream without synchronising, and adds one to
 ``LAUNCHES[<kernel>]`` where — and only where — it launches the kernel,
 so a run can show that its path went through each kernel.
+
+``flash_attention`` is differentiable: a call with grad goes through
+:class:`FlashAttention`, whose backward is ``flash_attention_bwd`` (the
+backward kernel ``csrc/flash_prefill_bwd.cu``, counted as
+``flash_prefill_bwd``). The paged prefill and the two decode wrappers
+have no backward: no gradient reaches them.
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ from repro_torch.kernels import ref
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"rope_align": 0, "block_diff": 0,
-                            "flash_prefill": 0, "flash_prefill_paged": 0,
+                            "flash_prefill": 0, "flash_prefill_bwd": 0,
+                            "flash_prefill_paged": 0,
                             "flash_decode_paged": 0, "flash_decode": 0,
                             "fused_diff_restore": 0,
                             "fused_family_restore": 0}
@@ -184,11 +191,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     layout of ``models.layers``. Column j is allowed iff ``0 <= q_pos -
     j < window`` and ``j < kv_len[b]``. A ``softcap`` c > 0 caps each
     scaled logit s to ``c * tanh(s / c)`` before the mask (Grok's
-    attention). Returns ``[B, Sq, H, hd]``."""
+    attention). Returns ``[B, Sq, H, hd]``.
+
+    Differentiable: where grad is enabled and q, k or v requires grad,
+    the call goes through :class:`FlashAttention`, whose backward is
+    :func:`flash_attention_bwd` (the backward kernel on the card). Every
+    other call — each serving path — runs the forward alone, as before."""
     softcap = _softcap(softcap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, q_pos, kv_len, window, softcap)
+    return _flash_forward(q, k, v, q_pos, kv_len, window, softcap)
+
+
+def _flash_forward(q, k, v, q_pos, kv_len, window, softcap):
     if _on_cpu("flash_prefill", q, k, v, q_pos, kv_len):
         return ref.flash_attention_ref(q, k, v, q_pos=q_pos, window=window,
                                        kv_len=kv_len, softcap=softcap)
+    B, Sq, H, hd, Sk, KV = _attention_shapes(q, k, v, q_pos, kv_len)
+    window = int(min(window, 2 ** 31 - 1))
+    out = torch.empty_like(q)
+    _launch("flash_prefill", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), q_pos.data_ptr(),
+            None if kv_len is None else kv_len.data_ptr(),
+            B, Sq, Sk, H, KV, hd, window, 1.0 / math.sqrt(hd), softcap,
+            _DTYPES[q.dtype], _stream(q))
+    return out
+
+
+def _attention_shapes(q, k, v, q_pos, kv_len):
+    """Check a dense attention call's operands for the kernels; returns
+    (B, Sq, H, hd, Sk, KV)."""
     _check("q", q, ndim=4)
     _check("k", k, dtype=q.dtype, ndim=4)
     _check("v", v, dtype=q.dtype, ndim=4)
@@ -204,14 +236,66 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _check("kv_len", kv_len, dtype=torch.int32, ndim=1)
         if kv_len.shape[0] != B:
             raise ValueError("kv_len must be [B]")
+    return B, Sq, H, hd, Sk, KV
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` as an autograd function: the forward kernel
+    (or its plain version on the CPU), then :func:`flash_attention_bwd`.
+    It keeps q, k, v and the output for the backward, which recomputes
+    the softmax statistics from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_len, window, softcap):
+        out = _flash_forward(q, k, v, q_pos, kv_len, window, softcap)
+        ctx.save_for_backward(q, k, v, out, q_pos, kv_len)
+        ctx.window, ctx.softcap = window, softcap
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, q_pos, kv_len = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, dout.contiguous(), q_pos=q_pos, window=ctx.window,
+            kv_len=kv_len, softcap=ctx.softcap)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        q_pos: torch.Tensor, window: int,
+                        kv_len: Optional[torch.Tensor] = None,
+                        softcap: float = 0.0):
+    """Gradients (dq, dk, dv) of :func:`flash_attention` at ``out`` (its
+    result) for the output gradient ``dout``, in the inputs' dtype: the
+    backward kernel (``csrc/flash_prefill_bwd.cu``; one call launches its
+    two kernels, counted once) on a CUDA tensor,
+    ``ref.flash_attention_bwd_ref`` on the CPU. The kernel recomputes the
+    log-sum-exp of each row and writes it, and ``rowsum(dout * out)``, to
+    f32 scratch ``[B, H, Sq]`` allocated here."""
+    softcap = _softcap(softcap)
+    if _on_cpu("flash_prefill_bwd", q, k, v, out, dout, q_pos, kv_len):
+        return ref.flash_attention_bwd_ref(q, k, v, out, dout, q_pos=q_pos,
+                                           window=window, kv_len=kv_len,
+                                           softcap=softcap)
+    B, Sq, H, hd, Sk, KV = _attention_shapes(q, k, v, q_pos, kv_len)
+    for name, t in (("out", out), ("dout", dout)):
+        _check(name, t, dtype=q.dtype, ndim=4)
+        if t.shape != q.shape:
+            raise ValueError(f"{name} must be {tuple(q.shape)}, got "
+                             f"{tuple(t.shape)}")
     window = int(min(window, 2 ** 31 - 1))
-    out = torch.empty_like(q)
-    _launch("flash_prefill", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), q_pos.data_ptr(),
-            None if kv_len is None else kv_len.data_ptr(),
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
+    _launch("flash_prefill_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+            q_pos.data_ptr(), None if kv_len is None else kv_len.data_ptr(),
             B, Sq, Sk, H, KV, hd, window, 1.0 / math.sqrt(hd), softcap,
             _DTYPES[q.dtype], _stream(q))
-    return out
+    return dq, dk, dv
 
 
 # --------------------------------------------------------------------------

@@ -171,6 +171,57 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, hd).to(v.dtype)
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            dout: torch.Tensor, *, q_pos: torch.Tensor,
+                            window: int,
+                            kv_len: Optional[torch.Tensor] = None,
+                            softcap: float = 0.0):
+    """Gradients of :func:`flash_attention_ref` (causal, default scale)
+    with respect to q, k and v, by the closed-form softmax backward in
+    f32 — no autograd: the backward kernel's plain version.
+
+    ``out`` is the forward's result and ``dout`` its gradient, both ``[B,
+    Sq, H, hd]``. With the scaled logits ``r = q k^T / sqrt(hd)``, ``s =
+    c tanh(r / c)`` under a soft cap c > 0 (else ``s = r``), masked as the
+    forward masks them, ``P = softmax(s)`` and ``D = rowsum(dout * out)``:
+    ``dV = P^T dout``, ``dS = P (dout v^T - D)``, ``dR = dS (1 - tanh^2(r
+    / c))`` (``dS`` without a cap), ``dQ = dR k / sqrt(hd)`` and ``dK =
+    dR^T q / sqrt(hd)``; dK and dV sum over the G query heads of each KV
+    head. A masked pair contributes nothing; a row with no allowed
+    column gets no gradient. Returns (dq, dk, dv) in q's, k's and v's
+    dtypes."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Sq, KV, G, hd).float()
+    dog = dout.reshape(B, Sq, KV, G, hd).float()
+    kf, vf = k.float(), v.float()
+    raw = torch.einsum("bqkgh,bskh->bkgqs", qg, kf) * scale
+    cols = torch.arange(Sk, device=q.device)
+    delta = q_pos[:, :, None].long() - cols[None, None, :]       # [B, Sq, Sk]
+    allowed = (delta >= 0) & (delta < window)
+    if kv_len is not None:
+        allowed = allowed & (cols[None, None, :] < kv_len[:, None, None])
+    allowed = allowed[:, None, None]
+    logits = torch.where(allowed, cap_logits(raw, softcap),
+                         torch.tensor(NEG_INF, device=q.device))
+    # masked pairs contribute nothing, also in a row with no allowed
+    # column (whose forward output, uniform over every column, is undefined)
+    probs = torch.where(allowed, torch.softmax(logits, dim=-1), 0.0)
+    dlt = (dog * out.reshape(B, Sq, KV, G, hd).float()).sum(-1)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dog, vf)
+    ds = probs * (dp - dlt.permute(0, 2, 3, 1)[..., None])
+    if softcap:
+        ds = ds * (1.0 - torch.tanh(raw / softcap).square())
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qg) * scale
+    dv = torch.einsum("bkgqs,bqkgh->bskh", probs, dog)
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def paged_kv_ref(pool_k: torch.Tensor, pool_v: torch.Tensor,
                  page_idx: torch.Tensor, tail_k: Optional[torch.Tensor],
                  tail_v: Optional[torch.Tensor], span_len: int):

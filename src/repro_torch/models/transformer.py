@@ -11,7 +11,8 @@ Python loop in eager mode. Public API:
 
   init_params(cfg, seed, device=None)       -> params (random, seeded)
   from_jax(params_np, cfg, device=None)     -> params (the JAX weights)
-  forward(params, cfg, tokens, ...)         -> logits, aux (scoring)
+  forward(params, cfg, tokens, ...)         -> logits, aux (scoring and
+                                               training; differentiable)
   prefill(params, cfg, tokens, ...)         -> logits, cache
   make_empty_cache(cfg, batch, max_len, ...) -> cache
   extend(params, cfg, tokens, cache)        -> logits, cache (chunked prefill)
@@ -33,6 +34,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -181,6 +183,32 @@ def layer(params: dict, l: int) -> dict:
     return _pick(params["blocks"], l)
 
 
+def _unbind(tree, n: int) -> list:
+    if isinstance(tree, dict):
+        per = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: per[k][l] for k in per} for l in range(n)]
+    return list(torch.unbind(tree))
+
+
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    return tree.requires_grad
+
+
+def layer_list(params: dict, n_layers: int) -> list:
+    """Every layer's parameters, in order. Where autograd records (grad
+    enabled and a stacked leaf requires grad) each ``[L, ...]`` leaf is
+    taken apart ONCE with ``torch.unbind``, whose backward stacks the
+    layers' gradients in one allocation; indexing it per layer instead
+    (:func:`layer`) would make every layer's backward add a zero tensor
+    the size of the whole stack. Otherwise the views of :func:`layer`."""
+    blocks = params["blocks"]
+    if torch.is_grad_enabled() and _requires_grad(blocks):
+        return _unbind(blocks, n_layers)
+    return [layer(params, l) for l in range(n_layers)]
+
+
 # --------------------------------------------------------------------------
 # forward pieces
 # --------------------------------------------------------------------------
@@ -253,12 +281,14 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _run_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-              windows, frontend_embeds, keep: bool):
+              windows, frontend_embeds, keep: bool, remat: bool = False):
     """Every layer over the whole sequence (``block_full``): the final
     hidden state ``[B, S, D]`` (before the final norm), with ``keep`` each
     layer's cache outputs, and the layers' MoE losses summed (a 0-d f32;
     zero without MoE). The one layer loop of :func:`forward` and
-    :func:`prefill`, so the two give the same bits."""
+    :func:`prefill`, so the two give the same bits. ``remat`` runs each
+    layer under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward instead of kept."""
     B, S = tokens.shape
     h = _embed(params, cfg, tokens, frontend_embeds)
     positions = torch.arange(S, dtype=torch.int32,
@@ -269,9 +299,14 @@ def _run_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                 cfg.rope_theta)
     per_layer = []
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for l in range(cfg.n_layers):
-        h, outs = block_full(h, layer(params, l), cfg, window=windows[l],
-                             positions=positions, cos=cos, sin=sin)
+    for l, p in enumerate(layer_list(params, cfg.n_layers)):
+        if remat:
+            h, outs = torch.utils.checkpoint.checkpoint(
+                block_full, h, p, cfg, window=windows[l],
+                positions=positions, cos=cos, sin=sin, use_reentrant=False)
+        else:
+            h, outs = block_full(h, p, cfg, window=windows[l],
+                                 positions=positions, cos=cos, sin=sin)
         if "aux" in outs:
             aux = aux + outs.pop("aux")
         if keep:
@@ -281,7 +316,8 @@ def _run_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             frontend_embeds: Optional[torch.Tensor] = None,
-            long_context: bool = False, return_hidden: bool = False):
+            remat: bool = False, long_context: bool = False,
+            return_hidden: bool = False):
     """Training / scoring pass over ``tokens`` ``[B, S]``: (logits f32
     ``[B, S, V]``, aux), or with ``return_hidden`` (the hidden state
     ``[B, S, D]`` before the final norm, aux). ``aux`` is the MoE
@@ -292,15 +328,20 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     Windows are the layers' at S (JAX's). The layer loop is
     :func:`prefill`'s, so on the same weights and tokens the logits equal
-    ``prefill(..., max_len=S)``'s bit for bit. JAX's ``shard`` (waits for
-    the port of ``launch/``), ``remat`` (for ``training/``, where it
-    becomes ``torch.utils.checkpoint``) and ``unroll`` (a ``lax.scan``
-    knob; eager layers need none) are not accepted.
+    ``prefill(..., max_len=S)``'s bit for bit. Differentiable: attention
+    runs through ``ops.flash_attention``'s autograd function (the backward
+    kernel on the card), and stacked leaves that require grad are taken
+    apart once (:func:`layer_list`). ``remat=True`` (JAX's keyword; its
+    ``loss_fn`` passes True) checkpoints each layer
+    (``torch.utils.checkpoint``, non-reentrant): the same loss and
+    gradients, bit for bit, for one more forward a layer.
+    JAX's ``shard`` (waits for the port of ``launch/``) and ``unroll`` (a
+    ``lax.scan`` knob; eager layers need none) are not accepted.
     """
     S = tokens.shape[1]
     h, _, aux = _run_full(params, cfg, tokens,
                           _windows(cfg, S, long_context), frontend_embeds,
-                          keep=False)
+                          keep=False, remat=remat)
     if return_hidden:
         return h, aux
     return logits_of(params, cfg, h), aux

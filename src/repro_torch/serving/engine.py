@@ -116,10 +116,13 @@ class ServingEngine:
             # the JAX package raises ZeroDivisionError at round 1's plan
             raise ValueError(f"the {policy.name} policy selects KV blocks; "
                              f"it needs block_select > 0")
-        if policy.requires_attention_cache and (not cfg.has_attention
-                                                or cfg.has_ssm):
+        if policy.requires_attention_cache and cfg.has_attention and \
+                cfg.has_ssm:
             # the JAX package constructs and fails at round 1 (extend
-            # asserts an attention-only cache); refuse before any work
+            # asserts an attention-only cache); refuse before any work. An
+            # attention-free model constructs, as in JAX: its rounds leave
+            # no attention KV (round_kv is None), so the policy stores no
+            # session and every round recomputes
             raise ValueError(f"the {policy.name} policy extends a cached "
                              f"attention prefix; {cfg.name} carries SSM "
                              f"state")

@@ -140,7 +140,8 @@ class ReusePolicy(ABC):
     #: plans in whole KV blocks: the engine refuses ``block_select=0``
     requires_blocks: bool = False
     #: extends a cached attention prefix and has no recompute fallback:
-    #: the engine refuses an SSM or hybrid model at construction
+    #: the engine refuses a hybrid model at construction (an
+    #: attention-free one caches nothing, so every round recomputes)
     requires_attention_cache: bool = False
 
     def __init__(self) -> None:

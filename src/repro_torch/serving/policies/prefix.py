@@ -38,9 +38,11 @@ class PrefixCachePolicy(ReusePolicy):
     member still has cached; ``recover`` pads the stacked prefix caches
     to the prompt length and extends over the suffix (the prefill kernel
     with queries at the suffix positions); ``store`` keeps each agent's
-    full dense cache for the next round, in storage of its own. An SSM or
-    hybrid model is refused (``requires_attention_cache``): ``extend``
-    carries attention KV only."""
+    full dense cache for the next round, in storage of its own. A hybrid
+    model is refused (``requires_attention_cache``): ``extend`` carries
+    attention KV only. An attention-free model (Mamba2) is served as JAX
+    serves it: its rounds leave no attention KV, so ``store`` keeps no
+    session and every round recomputes."""
 
     requires_attention_cache = True
 

@@ -8,10 +8,10 @@ point JAX has for the family — ``forward`` and ``prefill`` (with
 the attention models ``decode_step_paged`` and ``extend`` (the PIC
 selective block with MoE is in ``test_torch_moe.py``) — and the serving
 engine for 3 rounds of ``agent_society``: Grok under every policy,
-Mamba2 through the recompute fallback (the prefix policy refused at
-construction), the other three with the defaults. The norm scales are
-drawn at random (JAX initialises them to zero), as in
-``test_torch_qwen.py``.
+Mamba2 through the recompute fallback and under the prefix policy
+(which recomputes every round, as in JAX), the other three with the
+defaults. The norm scales are drawn at random (JAX initialises them to
+zero), as in ``test_torch_qwen.py``.
 
 Tolerances: logits atol 3e-5 + rtol 1e-4 (JAX's own for decode against
 forward, ``tests/test_models.py``); the MoE load-balance loss to 1e-6;
@@ -187,13 +187,20 @@ def test_mamba2_engine_matches_jax(policy):
     assert all(s.persistent_bytes == 0 for s in ts)
 
 
-def test_mamba2_prefix_policy_refused_at_construction():
-    """The prefix policy extends a cached attention prefix; an
-    attention-free model is refused before any work (JAX constructs it and
-    serves every round by recompute, storing no prefix)."""
-    _, _, tcfg, tparams = _weights("mamba2-2.7b")
-    with pytest.raises(ValueError, match="SSM state"):
-        TorchEngine(tparams, tcfg, "prefix", **KW)
+def test_mamba2_prefix_policy_serves_as_jax():
+    """The prefix policy on the attention-free model, as JAX serves it:
+    constructed under its own name, every round recomputed (no attention
+    KV, so no session is stored and no prefix reused), with JAX's tokens,
+    reuse ledger and pool bytes (``agent_society``, 3 agents, 3 rounds,
+    seed 11); no attention kernel's plain version runs."""
+    ops.reset_launches()
+    jeng, js, teng, ts = _serve_both("mamba2-2.7b", "prefix", 3,
+                                     workload="agent_society")
+    assert jeng.policy.name == teng.policy.name == "prefix"
+    assert not any(ops.PLAIN_CALLS.values()), dict(ops.PLAIN_CALLS)
+    _assert_served_alike(jeng, js, teng, ts)
+    assert all(s.persistent_bytes == 0 for s in ts)
+    assert all(s.reuse.get("prefix_len", 0) == 0 for s in ts)
 
 
 @pytest.mark.parametrize("arch", ["arctic-480b", "musicgen-large",

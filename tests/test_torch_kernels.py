@@ -593,6 +593,57 @@ def test_gpu_flash_prefill_edges(cuda, dtype, case, hd, G):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", GPU_DTYPES)
+@pytest.mark.parametrize("case", ["causal", "window_kv_len", "softcap",
+                                  "selected"])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("G", [1, 5, 8])
+def test_gpu_flash_attention_bwd(cuda, dtype, case, hd, G):
+    """The backward kernel (``ops.flash_attention_bwd``, one launch of its
+    two kernels) against ``ref.flash_attention_bwd_ref``: dq, dk and dv
+    where its 64-row tiles (32 at head dim 256) are cut (S 141), with a
+    binding window and a ragged kv_len, a soft cap of 30 (q scaled so the
+    cap bends the logits), and selected query positions over a longer KV
+    with a window. Two calls give the same bits. Every query row keeps an
+    allowed column."""
+    g = torch.Generator(device=cuda).manual_seed(hd * G)
+    KV, B = 2, 2
+    H = KV * G
+    Sq = Sk = 141
+    window, kv_len, q_pos, cap, qs = 2 ** 31 - 1, None, None, 0.0, 1.0
+    if case == "window_kv_len":
+        Sq = Sk = 200
+        window, kv_len = 70, [200, 151]
+    elif case == "softcap":
+        cap, qs = 30.0, 8.0
+    elif case == "selected":
+        Sk, Sq, window, kv_len = 250, 97, 90, [233, 250]
+        q_pos = torch.stack([torch.sort(torch.randperm(
+            Sk, generator=g, device=cuda)[:Sq]).values for _ in range(B)])
+    q = (qs * torch.randn(B, Sq, H, hd, generator=g, device=cuda)).to(dtype)
+    k = torch.randn(B, Sk, KV, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, Sk, KV, hd, generator=g, device=cuda).to(dtype)
+    dout = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dtype)
+    if q_pos is None:
+        q_pos = torch.arange(Sq, device=cuda).expand(B, Sq)
+    q_pos = q_pos.to(torch.int32).contiguous()
+    kl = (None if kv_len is None else
+          torch.tensor(kv_len, device=cuda, dtype=torch.int32))
+    kw = dict(q_pos=q_pos, window=window, kv_len=kl, softcap=cap)
+    out = ops.flash_attention(q, k, v, **kw)
+    ops.reset_launches()
+    got = ops.flash_attention_bwd(q, k, v, out, dout, **kw)
+    assert ops.LAUNCHES["flash_prefill_bwd"] == 1
+    again = ops.flash_attention_bwd(q, k, v, out, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "two calls differ"
+    want = ref.flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _held(a, b, dtype, f"flash_prefill_bwd {name} {case} hd {hd} G {G}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_DTYPES)
 @pytest.mark.parametrize("H,KV,hd", [(28, 4, 128), (8, 2, 32)])
 def test_gpu_flash_decode_paged(cuda, dtype, H, KV, hd):
     g = torch.Generator(device=cuda).manual_seed(3)
