@@ -163,7 +163,8 @@ Phases (each prints its lines; any failure exits non-zero):
      the weights freed. Then the backward kernel against its plain
      version at that layer's shape (q [1, 4096, 32, 128], k/v [1, 4096,
      8, 128], causal) in bf16 and f32, twice for the same bits, timed
-     beside its bound and SDPA's backward, and at the edges (head dims 64
+     beside its bound (with the rate its products make in the kernel's
+     time) and SDPA's backward, and at the edges (head dims 64
      / 128 / 256, G 1 / 4 / 8, binding windows, ragged kv_len, softcap
      30); [train parity]: one step's gradients at full width cut to 2
      layers with the kernels against the same step with attention routed
@@ -2271,7 +2272,9 @@ def bwd_times(timer, q, k, v, out, dout, q_pos, window, kv_len=None,
     backward minus its forward, GQA, ``is_causal``); and its bound: q, k,
     v, out and dout read once, dq, dk and dv written once, and 2.5 times
     the forward's products over the allowed pairs (dS and dP, dQ, dK, dV:
-    five products where the forward has two) at the input type's peak."""
+    five products where the forward has two) at the input type's peak;
+    and the rate those products make in the kernel's time
+    (``achieved_tflops``)."""
     from repro_torch.kernels import ops, ref
 
     B, Sq, H, hd = q.shape
@@ -2300,13 +2303,14 @@ def bwd_times(timer, q, k, v, out, dout, q_pos, window, kv_len=None,
             return torch.autograd.grad(o, (qt, kt, vt), dot)
 
         library = timer(sdpa_both, reps=7) - timer(sdpa_fwd, reps=7)
+    ms = timer(lambda: ops.flash_attention_bwd(q, k, v, out, dout, **kw),
+               reps=7)
     return dict(
-        ms=timer(lambda: ops.flash_attention_bwd(q, k, v, out, dout, **kw),
-                 reps=7),
-        plain_ms=timer(lambda: ref.flash_attention_bwd_ref(
+        ms=ms, plain_ms=timer(lambda: ref.flash_attention_bwd_ref(
             q, k, v, out, dout, **kw), reps=5),
         library_ms=library, bound_ms=bms, bound_by=by,
-        bound_cuda_core_ms=bound(n_bytes, flops, q.dtype)[0])
+        bound_cuda_core_ms=bound(n_bytes, flops, q.dtype)[0],
+        achieved_tflops=flops / ms / 1e9)
 
 
 def bwd_case(dev, g, dtype, B, Sq, Sk, H, KV, hd, window=None, kv_len=None,
@@ -2354,7 +2358,9 @@ def train_kernel(dev, launches):
         say(f"[train] flash_prefill_bwd q {list(q.shape)} k/v "
             f"{list(k.shape)} causal ({dt}): max abs err dq {e[0]:.3g} dk "
             f"{e[1]:.3g} dv {e[2]:.3g}, two calls bit-equal; "
-            f"{times_line(times[dt])}")
+            f"{times_line(times[dt])}; "
+            f"{times[dt]['achieved_tflops']:.1f} TFLOP/s of the bound's "
+            f"products")
         del q, k, v, out, dout, args
     edges = [  # (B, Sq, Sk, H, KV, hd, window, kv_len, softcap, q scale)
         (2, 1000, 1000, 8, 8, 64, 300, [1000, 777], 0.0, 1.0),     # G 1

@@ -1,40 +1,101 @@
 """Build the attention backward kernel alone and hold it on one card.
 
     python3 scripts/probe_bwd_kernel.py
+    python3 scripts/probe_bwd_kernel.py --ab PARENT . . PARENT
 
-Builds ``csrc/flash_prefill.cu`` and ``csrc/flash_prefill_bwd.cu`` (not
-the other sources), then runs ``ops.flash_attention_bwd`` against
+Without ``--ab``: builds ``csrc/flash_prefill.cu`` and
+``csrc/flash_prefill_bwd.cu`` (not the other sources) and prints the
+registers, spill stores and loads, and shared memory ptxas gives each
+instance of ``dq_kernel`` and ``dkv_kernel`` (element type, head dim,
+capped or not). Then runs ``ops.flash_attention_bwd`` against
 ``ref.flash_attention_bwd_ref`` in f32 and bf16 at head dims 32 / 64 /
 128 / 256 with G 1 / 2 / 8, binding windows, ragged ``kv_len`` and a soft
-cap of 30, each call twice for the same bits, and times it (CUDA events,
-mean of 3 calls after 2) at Qwen3-4B's training layer, q [1, 4096, 32,
-128] and k/v [1, 4096, 8, 128], causal. A quick check of a change to the
-kernel before ``chip_smoke.py``: under a minute on the card.
+cap of 30, each call twice for the same bits, and at Qwen3-4B's training
+layer, q [1, 4096, 32, 128] and k/v [1, 4096, 8, 128], causal, times it:
+the whole call (CUDA events, median of 7 calls with the L2 cache evicted
+before each), each of its two kernels alone (device time from
+``torch.profiler``, mean of 5 calls), the achieved rate of the whole call
+against its bound (five products a pair over the causal pairs, 2.5 x the
+forward's, at 989 TFLOP/s in bf16 and, in f32, three TF32 products at 495)
+and SDPA's backward on the same inputs. A quick check of a change to the
+kernel before ``chip_smoke.py``: a few minutes on the card.
+
+With ``--ab``: each argument is the root of a checkout with
+``src/repro_torch``; each runs as a process of its own that builds that
+checkout's two prefill sources and prints one JSON line with the backward's
+CUDA-event time at the training shape in bf16 and f32, a hash of the bits
+of its three outputs, and (where the run built the kernel, not the
+earlier run of the same checkout) the most registers an instance takes
+and the instances that spill. Give the runs in turns (A B B A) so that drift
+of the card shows.
 """
+import hashlib
+import json
+import re
+import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
-
-from repro_torch.kernels import build as kb  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
-
+ROOT = Path(__file__).resolve().parents[1]
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1.6e-2)}
-# (B, Sq, Sk, H, KV, hd, window, kv_len, softcap, timed)
-CASES = [(2, 70, 70, 4, 2, 32, None, None, 0.0, False),
-         (2, 100, 130, 8, 1, 64, 37, [130, 101], 0.0, False),
-         (1, 90, 90, 8, 8, 128, None, None, 30.0, False),
-         (2, 77, 77, 16, 2, 256, 40, [77, 60], 30.0, False),
-         (1, 200, 200, 8, 8, 256, None, None, 0.0, False),
-         (1, 4096, 4096, 32, 8, 128, None, None, 0.0, True)]
+# (B, Sq, Sk, H, KV, hd, window, kv_len, softcap)
+CASES = [(2, 70, 70, 4, 2, 32, None, None, 0.0),
+         (2, 100, 130, 8, 1, 64, 37, [130, 101], 0.0),
+         (1, 90, 90, 8, 8, 128, None, None, 30.0),
+         (2, 77, 77, 16, 2, 256, 40, [77, 60], 30.0),
+         (1, 200, 200, 8, 8, 256, None, None, 0.0),
+         (1, 1024, 1024, 16, 4, 128, None, None, 0.0)]
+TRAIN = (1, 4096, 4096, 32, 8, 128)      # B, Sq, Sk, H, KV, hd: Qwen3-4B
 
 
-def case(dev, dt, B, Sq, Sk, H, KV, hd, window, kv_len, cap, timed):
-    g = torch.Generator(device=dev).manual_seed(0)
+def card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def instances(log: str) -> list:
+    """(kernel, type, head dim, capped, dkv_kernel's outputs, registers,
+    spill stores, spill loads, static shared memory bytes) of every kernel
+    instance in a ptxas log."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(dkv_kernel|dq_kernel)I(13__nv_bfloat16|f)"
+                          r"Li(\d+)ELb([01])E(?:Li(\d)E)?", m.group(1))
+            cur = None if k is None else {
+                "kernel": k.group(1),
+                "type": "bf16" if k.group(2) != "f" else "f32",
+                "hd": int(k.group(3)), "capped": k.group(4) == "1"}
+            if k is not None and k.group(5):   # dkv_kernel's outputs
+                cur["outputs"] = {"1": "dV", "2": "dK", "3": "dK, dV"}[
+                    k.group(5)]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+            rows.append(cur)
+            cur = None
+    return rows
+
+
+def inputs(dev, dt, B, Sq, Sk, H, KV, hd, window=None, kv_len=None,
+           cap=0.0, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
     q, do = (torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dt)
              for _ in range(2))
     k, v = (torch.randn(B, Sk, KV, hd, generator=g, device=dev).to(dt)
@@ -43,6 +104,14 @@ def case(dev, dt, B, Sq, Sk, H, KV, hd, window, kv_len, cap, timed):
               .to(torch.int32).contiguous(), window=window or Sk,
               kv_len=None if kv_len is None else torch.tensor(
                   kv_len, dtype=torch.int32, device=dev), softcap=cap)
+    return q, k, v, do, kw
+
+
+def case(dev, dt, B, Sq, Sk, H, KV, hd, window, kv_len, cap):
+    from repro_torch.kernels import ops, ref
+
+    q, k, v, do, kw = inputs(dev, dt, B, Sq, Sk, H, KV, hd, window, kv_len,
+                             cap)
     out = ops.flash_attention(q, k, v, **kw)
     got = ops.flash_attention_bwd(q, k, v, out, do, **kw)
     same = all(torch.equal(a, b) for a, b in
@@ -54,40 +123,134 @@ def case(dev, dt, B, Sq, Sk, H, KV, hd, window, kv_len, cap, timed):
         e = (a.float() - b.float()).abs()
         errs.append(e.max().item())
         ok &= bool((e <= atol + rtol * b.float().abs()).all())
-    line = (f"B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd{hd} window {window} kv_len "
-            f"{kv_len} softcap {cap} {dt}: max abs err dq {errs[0]:.3g} dk "
-            f"{errs[1]:.3g} dv {errs[2]:.3g}, within tolerance and two calls "
-            f"bit-equal: {ok}")
-    if timed:
-        for _ in range(2):
-            ops.flash_attention_bwd(q, k, v, out, do, **kw)
+    print(f"B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd{hd} window {window} kv_len "
+          f"{kv_len} softcap {cap} {dt}: max abs err dq {errs[0]:.3g} dk "
+          f"{errs[1]:.3g} dv {errs[2]:.3g}; two calls bit-equal {same}; "
+          f"held {ok}", flush=True)
+    return ok
+
+
+def timed(fn, flush, reps=7):
+    """CUDA-event median of reps calls, the L2 cache evicted before each."""
+    for _ in range(2):
+        fn()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         s.record()
-        for _ in range(3):
-            ops.flash_attention_bwd(q, k, v, out, do, **kw)
+        fn()
         e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def kernel_ms(fn, n=5):
+    """Mean device time a call of each of the backward's two kernels
+    (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        line += f"; {s.elapsed_time(e) / 3:.3f} ms a call"
-    print(line, flush=True)
-    return ok
+    out = {"dq_kernel": 0.0, "dkv_kernel": 0.0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name in out:
+            if name in e.name:
+                out[name] += (e.time_range.end - e.time_range.start) / 1e3
+    return {k: v / n for k, v in out.items()}
+
+
+def train_shape(dev, dt, flush):
+    from repro_torch.kernels import ops
+
+    B, Sq, Sk, H, KV, hd = TRAIN
+    q, k, v, do, kw = inputs(dev, dt, B, Sq, Sk, H, KV, hd, seed=24)
+    out = ops.flash_attention(q, k, v, **kw)
+    fn = lambda: ops.flash_attention_bwd(q, k, v, out, do, **kw)  # noqa: E731
+    ms = timed(fn, flush)
+    split = kernel_ms(fn)
+    pairs = H * Sq * (Sq + 1) // 2
+    flops = 2.5 * 4 * hd * pairs
+    peak = 989e12 if dt == torch.bfloat16 else 495e12 / 3
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+    def sdpa_both():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (qt, kt, vt), do.transpose(1, 2))
+
+    sdpa = timed(sdpa_both, flush) - timed(sdpa_fwd, flush)
+    bits = hashlib.sha1(b"".join(x.contiguous().view(torch.uint8).cpu()
+                                 .numpy().tobytes() for x in fn())) \
+        .hexdigest()[:16]
+    return {"ms": ms, **{f"{k}_ms": v for k, v in split.items()},
+            "tflops": flops / ms / 1e9, "bound_ms": flops / peak * 1e3,
+            "sdpa_bwd_ms": sdpa, "bits": bits}
+
+
+def ab_run(root: str) -> dict:
+    """One checkout's backward at the training shape, in a process of its
+    own (this script's functions, that checkout's kernels)."""
+    code = ("import json, sys; "
+            f"sys.path[:0] = ['src', {str(ROOT / 'scripts')!r}]; "
+            "import torch, probe_bwd_kernel as p; "
+            "from repro_torch.kernels import build as kb; "
+            "kb.build_all(('flash_prefill', 'flash_prefill_bwd')); "
+            "dev = torch.device('cuda'); "
+            "flush = torch.empty(16 * 2 ** 20, device=dev); "
+            "out = {str(dt).split('.')[-1]: p.train_shape(dev, dt, flush) "
+            "for dt in (torch.bfloat16, torch.float32)}; "
+            "rows = p.instances(kb.BUILD_LOGS['flash_prefill_bwd']); "
+            "out.update(rows and {"
+            "'max_registers': max(r['registers'] for r in rows), "
+            "'spilled': [r for r in rows if r['spill_stores']]}); "
+            "print(json.dumps(out))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=1200)
+    if out.returncode != 0:
+        raise RuntimeError(f"{root}: rc {out.returncode}\n"
+                           f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return {"root": root, **json.loads(out.stdout.strip().splitlines()[-1])}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("probe_bwd_kernel: no CUDA device", file=sys.stderr)
         return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+    print(card(), flush=True)
+    if sys.argv[1:2] == ["--ab"]:
+        for root in sys.argv[2:]:
+            print(json.dumps(ab_run(root)), flush=True)
+        return 0
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build as kb
+
     t0 = time.perf_counter()
     kb.build_all(("flash_prefill", "flash_prefill_bwd"))
-    print(f"build {time.perf_counter() - t0:.1f} s")
-    for line in kb.BUILD_LOGS["flash_prefill_bwd"].splitlines():
-        if "Used" in line or "spill" in line:
-            print(line.strip())
+    print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    for r in instances(kb.BUILD_LOGS["flash_prefill_bwd"]):
+        print(json.dumps(r))
     dev = torch.device("cuda")
     ok = all([case(dev, dt, *c) for dt in (torch.float32, torch.bfloat16)
               for c in CASES])
+    flush = torch.empty(16 * 2 ** 20, device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        print(f"train shape {list(TRAIN)} causal {dt}: "
+              f"{json.dumps(train_shape(dev, dt, flush))}", flush=True)
     return 0 if ok else 1
 
 

@@ -199,18 +199,23 @@ __device__ __forceinline__ void split_pair(float p0, float p1, uint32_t& hi,
                                        p1 - __high2float(h)));
 }
 
-template <int HD>
+// BK, QRegs and Split default to the prefill kernels' choice; the
+// attention backward (flash_prefill_bwd.cu) takes the same products on
+// other tiles (fewer rows a stage, the A operand always in shared memory
+// in dkv_kernel, more warps sharing a row group's output columns).
+template <int HD, int BK = 64, bool QRegs = (HD <= 128),
+          int Split = col_split<HD>()>
 struct Bf16Op {
   using T = __nv_bfloat16;
-  static constexpr int kBK = 64;        // KV rows per ring stage
+  static constexpr int kBK = BK;        // KV rows per ring stage
   static constexpr int kStages = 2;
   static constexpr int kPK = HD + 8;    // shared row pitches, elements
   static constexpr int kPV = HD + 8;
-  static constexpr int kOut = HD / col_split<HD>();  // output columns a warp
+  static constexpr int kOut = HD / Split;  // output columns a warp
   // Q's A fragments stay in registers up to hd 128 (64 a lane there); at
   // hd 256 Q is staged in shared memory and each k-step's fragment is
   // read by ldmatrix (the same values, so the same products)
-  static constexpr bool kQRegs = HD <= 128;
+  static constexpr bool kQRegs = QRegs;
   static constexpr int kPQ = kQRegs ? 0 : HD + 8;
 
   uint32_t qf[kQRegs ? HD / 16 : 1][4];  // Q's A fragments, k-steps of 16
@@ -343,15 +348,19 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, ah, bh0, bh1);
 }
 
-template <int HD>
+// BK, PV and Split default to the prefill kernels' choice; the attention
+// backward reads one tile both as K (scores) and as V (pv), so it pitches
+// both HD + 8 (2-way bank conflicts in pv's reads), takes fewer rows and
+// splits the output columns over more warps.
+template <int HD, int BK = 32, int PV = HD + 4, int Split = col_split<HD>()>
 struct Tf32Op {
   using T = float;
-  static constexpr int kBK = 32;        // KV rows per ring stage
+  static constexpr int kBK = BK;        // KV rows per ring stage
   static constexpr int kStages = 2;
   static constexpr int kPK = HD + 8;    // = 8 (mod 32) words: 8-byte K reads
-  static constexpr int kPV = HD + 4;    // = 4 (mod 16) words: 8-byte V reads
+  static constexpr int kPV = PV;        // HD + 4 = 4 (mod 16): 8-byte V reads
   static constexpr int kPQ = HD + 8;    // Q in shared memory, pitched as K
-  static constexpr int kOut = HD / col_split<HD>();  // output columns a warp
+  static constexpr int kOut = HD / Split;  // output columns a warp
 
   const float* qw;                      // this warp's 16 rows of Q
 
@@ -363,40 +372,55 @@ struct Tf32Op {
   // s += Q K^T over the tile's kBK columns. k-step ks takes head dims
   // 8 ks + 2 (l % 4) (A and B column l % 4) and + 1 (column l % 4 + 4).
   // kFresh (the capped instance): each k-step's products go into a zero
-  // fragment, added to s in f32 (see the top of this file)
-  template <bool kFresh = false>
+  // fragment, added to s in f32 (see the top of this file). kSteps > 0
+  // (the attention backward): that many k-steps unrolled, not all, so that
+  // ptxas does not hoist every k-step's loads and spill
+  template <bool kFresh = false, int kSteps = 0>
   __device__ __forceinline__ void scores(float (&s)[kBK / 8][4], const T* Ks,
                                          int lane) const {
     const int g = lane >> 2, tg = lane & 3;
+    if constexpr (kSteps == 0) {
 #pragma unroll
-    for (int ks = 0; ks < HD / 8; ++ks) {
-      const float2 a = *reinterpret_cast<const float2*>(
-          qw + g * kPQ + 8 * ks + 2 * tg);
-      const float2 b = *reinterpret_cast<const float2*>(
-          qw + (g + 8) * kPQ + 8 * ks + 2 * tg);
-      uint32_t ah[4], al[4];
-      split_tf32(a.x, ah[0], al[0]);    // row r0, column l % 4
-      split_tf32(b.x, ah[1], al[1]);    // row r1
-      split_tf32(a.y, ah[2], al[2]);    // row r0, column l % 4 + 4
-      split_tf32(b.y, ah[3], al[3]);
+      for (int ks = 0; ks < HD / 8; ++ks)
+        score_step<kFresh>(s, Ks, g, tg, ks);
+    } else {
+#pragma unroll (kSteps)
+      for (int ks = 0; ks < HD / 8; ++ks)
+        score_step<kFresh>(s, Ks, g, tg, ks);
+    }
+  }
+
+  // k-step ks of scores
+  template <bool kFresh>
+  __device__ __forceinline__ void score_step(float (&s)[kBK / 8][4],
+                                             const T* Ks, int g, int tg,
+                                             int ks) const {
+    const float2 a = *reinterpret_cast<const float2*>(
+        qw + g * kPQ + 8 * ks + 2 * tg);
+    const float2 b = *reinterpret_cast<const float2*>(
+        qw + (g + 8) * kPQ + 8 * ks + 2 * tg);
+    uint32_t ah[4], al[4];
+    split_tf32(a.x, ah[0], al[0]);    // row r0, column l % 4
+    split_tf32(b.x, ah[1], al[1]);    // row r1
+    split_tf32(a.y, ah[2], al[2]);    // row r0, column l % 4 + 4
+    split_tf32(b.y, ah[3], al[3]);
 #pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-        // column g of slice j: key 8 j + g
-        const float2 k = *reinterpret_cast<const float2*>(
-            Ks + (8 * j + g) * kPK + 8 * ks + 2 * tg);
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(k.x, bh0, bl0);
-        split_tf32(k.y, bh1, bl1);
-        if constexpr (kFresh) {
-          float t[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_3xtf32(t, ah, al, bh0, bh1, bl0, bl1);
-          s[j][0] += t[0];
-          s[j][1] += t[1];
-          s[j][2] += t[2];
-          s[j][3] += t[3];
-        } else {
-          mma_3xtf32(s[j], ah, al, bh0, bh1, bl0, bl1);
-        }
+    for (int j = 0; j < kBK / 8; ++j) {
+      // column g of slice j: key 8 j + g
+      const float2 k = *reinterpret_cast<const float2*>(
+          Ks + (8 * j + g) * kPK + 8 * ks + 2 * tg);
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(k.x, bh0, bl0);
+      split_tf32(k.y, bh1, bl1);
+      if constexpr (kFresh) {
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_3xtf32(t, ah, al, bh0, bh1, bl0, bl1);
+        s[j][0] += t[0];
+        s[j][1] += t[1];
+        s[j][2] += t[2];
+        s[j][3] += t[3];
+      } else {
+        mma_3xtf32(s[j], ah, al, bh0, bh1, bl0, bl1);
       }
     }
   }
@@ -406,7 +430,10 @@ struct Tf32Op {
   // 6, 1, 3, 5, 7): column l % 4 of P's A fragment is key 2 (l % 4), held
   // in s[kk][0] / [2], and column l % 4 + 4 is key 2 (l % 4) + 1, in
   // s[kk][1] / [3]. Output slices 2 e and 2 e + 1 take dims 16 e + 2 n and
-  // 16 e + 2 n + 1 for their column n.
+  // 16 e + 2 n + 1 for their column n. kFresh (the attention backward):
+  // each k-step's products go into a zero fragment, added to acc in f32,
+  // with each slice pair's V values loaded as they are used
+  template <bool kFresh = false>
   __device__ __forceinline__ void pv(float (&acc)[kOut / 8][4],
                                      const float (&s)[kBK / 8][4],
                                      const T* Vs, int lane) const {
@@ -420,6 +447,27 @@ struct Tf32Op {
       split_tf32(s[kk][3], ph[3], pl[3]);
       const T* const va = Vs + (8 * kk + 2 * tg) * kPV + 2 * g;   // key 2 tg
       const T* const vb = va + kPV;                               // + 1
+      if constexpr (kFresh) {
+#pragma unroll
+        for (int e = 0; e < kOut / 16; ++e) {
+          const float2 a = *reinterpret_cast<const float2*>(va + 16 * e);
+          const float2 b = *reinterpret_cast<const float2*>(vb + 16 * e);
+          uint32_t ah, al, bh, bl;
+          float t[4] = {0.f, 0.f, 0.f, 0.f}, u[4] = {0.f, 0.f, 0.f, 0.f};
+          split_tf32(a.x, ah, al);
+          split_tf32(b.x, bh, bl);
+          mma_3xtf32(t, ph, pl, ah, bh, al, bl);
+          split_tf32(a.y, ah, al);
+          split_tf32(b.y, bh, bl);
+          mma_3xtf32(u, ph, pl, ah, bh, al, bl);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[2 * e][i] += t[i];
+            acc[2 * e + 1][i] += u[i];
+          }
+        }
+        continue;
+      }
       float2 fa[kOut / 16], fb[kOut / 16];
 #pragma unroll
       for (int e = 0; e < kOut / 16; ++e) {

@@ -269,10 +269,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Gradients (dq, dk, dv) of :func:`flash_attention` at ``out`` (its
     result) for the output gradient ``dout``, in the inputs' dtype: the
     backward kernel (``csrc/flash_prefill_bwd.cu``; one call launches its
-    two kernels, counted once) on a CUDA tensor,
+    two kernels, three in f32 at head dim 256, counted once) on a CUDA
+    tensor,
     ``ref.flash_attention_bwd_ref`` on the CPU. The kernel recomputes the
-    log-sum-exp of each row and writes it, and ``rowsum(dout * out)``, to
-    f32 scratch ``[B, H, Sq]`` allocated here."""
+    log-sum-exp of each row (in base 2) and writes it, and ``rowsum(dout
+    * out)``, to f32 scratch ``[B, H, Sq]`` allocated here."""
     softcap = _softcap(softcap)
     if _on_cpu("flash_prefill_bwd", q, k, v, out, dout, q_pos, kv_len):
         return ref.flash_attention_bwd_ref(q, k, v, out, dout, q_pos=q_pos,

@@ -247,6 +247,82 @@ def test_split_tf32_products_hold_the_f32_tolerance(hd):
     assert not held(_attention_tf32(q, k, v, q_pos, split=False))
 
 
+def _bwd_bf16_rounded(q, k, v, out, dout, q_pos, window, kv_len, softcap,
+                      lo_term=True):
+    """``ref.flash_attention_bwd_ref`` as the bf16 backward kernel rounds
+    it: the products of bf16 q, k, v and dout in f32, P and dS (the scale
+    folded into dS) rounded to bf16 hi + lo (hi = bf16(x), lo = bf16(x -
+    hi); hi alone without ``lo_term``) before the three output products,
+    each result rounded to bf16 once."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G, scale = H // KV, 1.0 / hd ** 0.5
+
+    def rounded(x):
+        hi = x.bfloat16().float()
+        return hi + (x - hi).bfloat16().float() if lo_term else hi
+
+    qg = q.reshape(B, Sq, KV, G, hd).float()
+    dog = dout.reshape(B, Sq, KV, G, hd).float()
+    kf, vf = k.float(), v.float()
+    raw = torch.einsum("bqkgh,bskh->bkgqs", qg, kf) * scale
+    delta = q_pos[:, :, None].long() - torch.arange(Sk)[None, None]
+    allowed = (delta >= 0) & (delta < window)
+    if kv_len is not None:
+        allowed &= torch.arange(Sk)[None, None] < kv_len[:, None, None].long()
+    allowed = allowed[:, None, None]
+    probs = torch.where(allowed, torch.softmax(torch.where(
+        allowed, ref.cap_logits(raw, softcap), torch.tensor(-2.0 ** 30)),
+        dim=-1), 0.0)
+    dlt = (dog * out.reshape(B, Sq, KV, G, hd).float()).sum(-1)
+    ds = probs * (torch.einsum("bqkgh,bskh->bkgqs", dog, vf)
+                  - dlt.permute(0, 2, 3, 1)[..., None]) * scale
+    if softcap:
+        ds = ds * (1.0 - torch.tanh(raw / softcap).square())
+    p, ds = rounded(probs), rounded(ds)
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf).reshape(B, Sq, H, hd)
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qg)
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dog)
+    return tuple(x.bfloat16() for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("case", ["causal", "softcap", "window_kv_len"])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_bwd_bf16_rounding_policy_holds_the_bf16_tolerance(hd, G, case):
+    """The numeric design of the bf16 attention backward, in plain torch:
+    from bf16 q, k, v and dout (S 257, 2 KV heads; uncapped, a soft cap of
+    30 with q x 8, or a binding window of 70 with a ragged kv_len), P and dS
+    rounded to bf16 hi + lo before the three output products stay within
+    the card's bf16 tolerance (atol 2e-2 + rtol 1.6e-2) of the f32 plain
+    version on the same values. The error with hi alone is printed beside
+    it: what the lo term buys."""
+    r = _rng(hd * 10 + G)
+    B, S, KV = 2, 257, 2
+    H = KV * G
+    window, kv_len, softcap, qs = S, None, 0.0, 1.0
+    if case == "softcap":
+        softcap, qs = 30.0, 8.0
+    elif case == "window_kv_len":
+        window, kv_len = 70, torch.tensor([257, 190], dtype=torch.int32)
+    q, k, v = (_t(x).bfloat16() for x in _attn_inputs(
+        hd * 10 + G, B, S, S, H, KV, hd))
+    q = (q.float() * qs).bfloat16()
+    dout = _t(r.normal(size=(B, S, H, hd)).astype(np.float32)).bfloat16()
+    q_pos = torch.arange(S, dtype=torch.int32).expand(B, S).contiguous()
+    kw = dict(q_pos=q_pos, window=window, kv_len=kv_len, softcap=softcap)
+    out = ref.flash_attention_ref(q, k, v, **kw)
+    want = ref.flash_attention_bwd_ref(
+        *(x.float() for x in (q, k, v, out, dout)), **kw)
+    got = _bwd_bf16_rounded(q, k, v, out, dout, **kw)
+    hi_only = _bwd_bf16_rounded(q, k, v, out, dout, **kw, lo_term=False)
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, hi_only):
+        err = _held(a, b, torch.bfloat16,
+                    f"bf16 policy {name} {case} hd {hd} G {G}")
+        print(f"  hi alone: max abs err {(c.float() - b).abs().max():.3g} "
+              f"(hi + lo {err:.3g})")
+
+
 # ------------------------------------------------------- paged decode
 def test_flash_decode_paged_plain_matches_jax():
     """Ragged per-sequence spans, a tail > 0 and GQA 8:2: each sequence
@@ -594,16 +670,18 @@ def test_gpu_flash_prefill_edges(cuda, dtype, case, hd, G):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", GPU_DTYPES)
 @pytest.mark.parametrize("case", ["causal", "window_kv_len", "softcap",
-                                  "selected"])
+                                  "selected", "unaligned"])
 @pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("G", [1, 5, 8])
 def test_gpu_flash_attention_bwd(cuda, dtype, case, hd, G):
     """The backward kernel (``ops.flash_attention_bwd``, one launch of its
     two kernels) against ``ref.flash_attention_bwd_ref``: dq, dk and dv
-    where its 64-row tiles (32 at head dim 256) are cut (S 141), with a
-    binding window and a ragged kv_len, a soft cap of 30 (q scaled so the
-    cap bends the logits), and selected query positions over a longer KV
-    with a window. Two calls give the same bits. Every query row keeps an
+    where its 64-row blocks and its ring's 16-, 32- and 64-row tiles are
+    cut (S 141), with a binding window and a ragged kv_len, a soft cap of
+    30 (q scaled so the cap bends the logits), selected query positions
+    over a longer KV with a window, and q, k, v, out and dout off a
+    16-byte boundary (staged with plain loads: the same bits as the
+    aligned call). Two calls give the same bits. Every query row keeps an
     allowed column."""
     g = torch.Generator(device=cuda).manual_seed(hd * G)
     KV, B = 2, 2
@@ -636,10 +714,41 @@ def test_gpu_flash_attention_bwd(cuda, dtype, case, hd, G):
     again = ops.flash_attention_bwd(q, k, v, out, dout, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again)), \
         "two calls differ"
+    if case == "unaligned":
+        moved = ops.flash_attention_bwd(*map(_shifted, (q, k, v, out, dout)),
+                                        **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, moved)), \
+            "unaligned operands change the bits"
     want = ref.flash_attention_bwd_ref(q, k, v, out, dout, **kw)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == b.shape
         _held(a, b, dtype, f"flash_prefill_bwd {name} {case} hd {hd} G {G}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_DTYPES)
+def test_gpu_flash_attention_bwd_long_causal(cuda, dtype):
+    """A long causal call (S 1024, hd 128, G 4): dq_kernel walks up to 32
+    or more ring tiles a block and dkv_kernel up to 4 x 32 steps, so both
+    rings wrap many times; held to the plain version, two calls bit-equal,
+    one counted launch."""
+    g = torch.Generator(device=cuda).manual_seed(1024)
+    B, S, KV, G, hd = 1, 1024, 4, 4, 128
+    q, dout = (torch.randn(B, S, KV * G, hd, generator=g, device=cuda)
+               .to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, S, KV, hd, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    kw = dict(q_pos=torch.arange(S, device=cuda, dtype=torch.int32)
+              .expand(B, S).contiguous(), window=S)
+    out = ops.flash_attention(q, k, v, **kw)
+    ops.reset_launches()
+    got = ops.flash_attention_bwd(q, k, v, out, dout, **kw)
+    assert ops.LAUNCHES["flash_prefill_bwd"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, ops.flash_attention_bwd(q, k, v, out, dout, **kw)))
+    want = ref.flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _held(a, b, dtype, f"flash_prefill_bwd long causal {name}")
 
 
 @pytest.mark.gpu
