@@ -172,6 +172,20 @@ Phases (each prints its lines; any failure exits non-zero):
      [examples]: the four example twins (``train_small``,
      ``multi_agent_serving``, ``slo_admission``, ``continuous_serving``)
      at small arguments on the card;
+  13b. [launch] ``repro_torch.launch`` on the card: (a) Qwen3-4B at full
+     width and depth in f32 (tokens [2, 512] from seed 1) through
+     ``forward`` with DTensor parameters from ``distribute_params`` over
+     ``make_debug_mesh()`` (a one-rank nccl group, mesh (1, 1)) and
+     ``shard=rules.shard``: logits within atol 1e-5 of the unsharded
+     ``forward``'s, 36 ``flash_prefill`` launches and no plain version
+     (counts zeroed before, read after), both forwards timed with CUDA
+     events, the group destroyed; (b) the [train] step's share of the
+     bf16 peak in model FLOPs (``roofline.model_flops_for``), printed by
+     [train]; (c) ``python -m repro_torch.launch.dryrun --arch qwen2-72b
+     --shape train_4k --mesh single`` in a subprocess writing to a
+     temporary directory: its record ``ok``, with its peak bytes a
+     device, FLOPs, collective bytes and bottleneck (modelled from the
+     data-sheet constants, not measured);
   14. the f32 smoke configurations (Qwen2.5-7B with TokenDance and with
      the prefix policy, Hymba-1.5B with its recompute fallback,
      Qwen2.5-14B, Qwen3-4B, Qwen2-72B, Gemma3-1B, Gemma3-12B, Grok-1,
@@ -195,10 +209,13 @@ the result as JSON.
 """
 from __future__ import annotations
 
+import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2453,10 +2470,22 @@ def train_phase(dev):
     t_fwd = start.elapsed_time(events["forward"])
     t_bwd = events["forward"].elapsed_time(events["backward"])
     t_opt = events["backward"].elapsed_time(events["optimizer"])
+    step_ms = t_fwd + t_bwd + t_opt
     say(f"[train] step 1: loss {float(m['loss']):.4f}; forward {t_fwd:.1f} "
         f"ms, backward {t_bwd:.1f} ms (the {cfg.n_layers} layers' forward "
         f"again, under remat, included), optimizer {t_opt:.1f} ms, step "
-        f"{t_fwd + t_bwd + t_opt:.1f} ms (CUDA events)")
+        f"{step_ms:.1f} ms (CUDA events)")
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    from repro_torch.launch.roofline import model_flops_for
+    mf = model_flops_for(cfg, InputShape("train_4k", S, B, "train"))
+    say(f"[train] model FLOPs of the step (roofline.model_flops_for, 6 x "
+        f"{cfg.active_param_count() / 1e9:.3f} B active params x {B * S} "
+        f"tokens) {mf:.4e}: {mf / (step_ms / 1e3) / 1e12:.1f} TFLOP/s in "
+        f"the {step_ms:.1f} ms step, "
+        f"{mf / (step_ms / 1e3 * PEAK_FLOPS_BF16):.4f} of the "
+        f"{PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s bf16 peak (mfu; the remat "
+        f"forward and attention are not model FLOPs)")
     assert np.isfinite(float(m["loss"])), m
     del state, m
     n = 3
@@ -2543,6 +2572,103 @@ def train_parity(dev):
         f"k_norm gradients nonzero")
     del params, grads, pgrads
     freed("train parity", before + weights, weights)
+
+
+def launch_phase(dev):
+    """[launch]: (a) the sharded forward and (c) the dry-run subprocess
+    (module doc, phase 13b); (b) is printed by [train]."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import distribute_params, rules_for
+    from repro_torch.models import forward, init_params
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-4b").replace(dtype="float32")
+    B, S = 2, 512
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    params = init_params(cfg, 0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device=dev)
+    ref, _ = forward(params, cfg, tokens)
+    try:
+        mesh = make_debug_mesh()
+        rules = rules_for(cfg, INPUT_SHAPES["train_4k"], mesh)
+        sharded = distribute_params(params, rules)
+        ops.reset_launches()
+        out, _ = forward(sharded, cfg, tokens, shard=rules.shard)
+        torch.cuda.synchronize()
+        launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+        say(f"[launch] {cfg.name} at full width and depth ({cfg.n_layers} "
+            f"layers, d {cfg.d_model}, {cfg.n_heads} query heads over "
+            f"{cfg.n_kv_heads}, vocab {cfg.vocab_size}), f32, tokens [{B}, "
+            f"{S}] from seed 1, parameters as DTensors on {mesh} "
+            f"({dist.get_backend()}), shard=rules.shard: logits "
+            f"{tuple(out.placements)}; launches {launches}  plain-version "
+            f"calls {plain}")
+        assert launches["flash_prefill"] == cfg.n_layers, launches
+        assert sum(launches.values()) == cfg.n_layers, launches
+        assert not any(plain.values()), f"plain versions ran: {plain}"
+        full = out.full_tensor()
+        assert full.shape == (B, S, cfg.vocab_size), full.shape
+        assert bool(full.isfinite().all())
+        err = (full - ref).abs().max().item()
+        say(f"[launch] sharded logits against the unsharded forward's: "
+            f"max abs err {err:.3g} (atol 1e-5), bit-equal "
+            f"{torch.equal(full, ref)}")
+        assert err <= 1e-5, err
+        del out, full
+        timer = Timer(dev)
+        ms_plain = timer(lambda: forward(params, cfg, tokens), reps=5,
+                         warm=1)
+        ms_sharded = timer(lambda: forward(sharded, cfg, tokens,
+                                           shard=rules.shard), reps=5, warm=1)
+        say(f"[launch] forward {ms_plain:.2f} ms unsharded, {ms_sharded:.2f} "
+            f"ms sharded over the (1, 1) mesh (CUDA events, median of 5)")
+        del sharded, timer
+    finally:
+        dist.destroy_process_group()
+    del params, ref
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    say(f"[launch] after del: {gib(torch.cuda.memory_allocated()):.2f} GiB "
+        f"allocated (was {gib(before):.2f} before the phase)")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               "qwen2-72b", "--shape", "train_4k", "--mesh", "single",
+               "--out", out_dir]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        run = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=600)
+        path = Path(out_dir) / "qwen2-72b__train_4k__pod16x16.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+    if rec.get("status") != "ok":
+        say(run.stdout[-2000:], run.stderr[-4000:])
+        raise AssertionError(f"dry-run failed: {rec.get('error')}")
+    say(f"[launch] dry-run `{' '.join(cmd[2:-2])}` in "
+        f"{time.perf_counter() - t0:.1f} s: traced at published widths on a "
+        f"256-rank fake group; per device, modelled from the H100 data-sheet "
+        f"constants (not measured): peak "
+        f"{rec['peak_device_bytes'] / 2**30:.2f} GiB, {rec['hlo_flops']:.4e} "
+        f"FLOPs, {rec['hlo_bytes']:.4e} bytes, "
+        f"{rec['coll_bytes']:.4e} collective bytes {rec['coll_breakdown']}; "
+        f"terms compute {rec['t_compute']:.3f} s, memory "
+        f"{rec['t_memory']:.3f} s, collective {rec['t_collective']:.3f} s, "
+        f"bottleneck {rec['bottleneck']}; useful ratio "
+        f"{rec['useful_ratio']:.4f}; {rec['notes']}")
+    assert rec["peak_device_bytes"] > 0 and rec["hlo_flops"] > 0
+    assert rec["bottleneck"] in ("compute", "memory", "collective")
+    # the recorder counts local shards: each of 256 ranks holds ~1/256 of
+    # the model's work (a ratio near 0.004 would mean global ops counted)
+    assert 0.5 < rec["useful_ratio"] <= 1.0, rec["useful_ratio"]
+    say(f"[launch] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def examples_phase():
@@ -2859,6 +2985,7 @@ def main() -> int:
                                       train_launches["flash_prefill_bwd"])])
     train_parity(dev)
     examples_phase()
+    launch_phase(dev)
     smoke_parity(dev)
     table += table_rows(restore(dev))
     say(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")

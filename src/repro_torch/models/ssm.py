@@ -6,6 +6,7 @@ plain tensor code here). Parameters follow the reference layout: in_proj
 -> (z, x, B, C, dt), short causal depthwise conv over (x, B, C), A_log /
 dt_bias / D per head, gated RMSNorm, out_proj. The SSM state, dt and A
 are f32 whatever the model dtype; the conv state keeps the model dtype.
+On DTensors the mixer runs on local shards (:func:`mixer`).
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.layers import matmul, rmsnorm
 
@@ -185,3 +188,35 @@ def mamba2_decode(h: torch.Tensor, p: dict, *, cfg, state: torch.Tensor,
     y = y.reshape(B, di)
     y = rmsnorm(y * F.silu(z), p["out_norm"], cfg.rmsnorm_eps)
     return matmul(y, p["out_proj"])[:, None], (new_state, new_conv)
+
+
+def mixer(fn, h: torch.Tensor, p: dict, *, cfg, **states):
+    """``fn(h, p, cfg=cfg, **states)`` — :func:`mamba2_forward` or
+    :func:`mamba2_decode` — for a DTensor ``h`` too. JAX's rules leave the
+    mixer unsplit over ``model`` (``in_proj`` and ``out_proj`` shard over
+    ``data`` only), so it runs batch-parallel on local shards: the batch
+    as ``h`` has it, the weights gathered, the states' batch as ``h``'s.
+    The weights' gradients leave as partial sums over the batch's axes."""
+    if not isinstance(h, DTensor):
+        return fn(h, p, cfg=cfg, **states)
+    mesh = h.device_mesh
+    bp = tuple(Shard(0) if pl == Shard(0) else Replicate()
+               for pl in h.placements)
+    rep = (Replicate(),) * mesh.ndim
+    grad_w = tuple(Partial() if pl == Shard(0) else pl for pl in bp)
+    names = sorted(p)
+    held = [k for k, v in states.items() if v is not None]
+
+    def local(h, *args):
+        w = dict(zip(names, args))
+        out, (state, conv) = fn(h, w, cfg=cfg,
+                                **dict(zip(held, args[len(names):])))
+        return out, state, conv
+
+    out, state, conv = local_map(
+        local, out_placements=(bp, bp, bp),
+        in_placements=(bp,) + (rep,) * len(names) + (bp,) * len(held),
+        in_grad_placements=(bp,) + (grad_w,) * len(names) + (bp,) * len(held),
+        device_mesh=mesh, redistribute_inputs=True)(
+        h, *(p[k] for k in names), *(states[k] for k in held))
+    return out, (state, conv)

@@ -26,15 +26,25 @@ config's ``attn_logit_softcap`` reaches every attention call (Grok-1).
 A ``frontend`` (audio, vision) is stubbed as in JAX: ``forward`` and
 ``prefill`` take precomputed ``frontend_embeds`` for the first positions;
 the other entry points read tokens.
+
+``forward``, ``prefill`` and ``decode_step`` take JAX's ``shard`` hook
+(``models.layers.noshard`` by default, which changes nothing). With
+DTensor parameters (``launch.sharding.distribute_params``) and
+``shard=rules.shard`` they run sharded over the rules' mesh; plain
+tensors (tokens, positions, RoPE tables) then take part as replicated
+(``implicit_replication``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -43,6 +53,8 @@ from repro_torch.models.layers import (
     apply_rope,
     attention,
     feed_forward,
+    lookup,
+    noshard,
     out_proj,
     project_qkv,
     rmsnorm,
@@ -222,8 +234,25 @@ def _windows(cfg: ModelConfig, max_len: int, long_context: bool = False):
     return list(cfg.layer_window_sizes(max_len)) or [max_len] * cfg.n_layers
 
 
+@contextlib.contextmanager
+def sharded(params: dict):
+    """The context an entry point runs in: ``implicit_replication`` where
+    the parameters are DTensors, so plain tensors mix with them as
+    replicated; nothing otherwise. Nests: ``implicit_replication`` sets
+    one process-wide flag and clears it on exit, so an inner entry point
+    (``forward`` inside a training step, whose backward also mixes) leaves
+    the flag to the outermost one."""
+    if (not isinstance(params["final_norm"], DTensor)
+            or DTensor._op_dispatcher._allow_implicit_replication):
+        yield
+        return
+    with implicit_replication():
+        yield
+
+
 def block_full(h: torch.Tensor, p: dict, cfg: ModelConfig, *, window: int,
-               positions: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+               positions: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               shard=noshard):
     """One full-sequence layer (prefill, and PIC's fresh layers): causal
     attention over the sequence itself within ``window``, and/or the
     Mamba2 mixer, then the MLP or MoE. Returns (h, outs) with the layer's
@@ -234,22 +263,23 @@ def block_full(h: torch.Tensor, p: dict, cfg: ModelConfig, *, window: int,
     x = rmsnorm(h, p["ln1"], cfg.rmsnorm_eps)
     mixer = None
     if cfg.has_attention:
-        q, k, v = project_qkv(x, p["attn"], cfg)
+        q, k, v = project_qkv(x, p["attn"], cfg, shard)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         outs["k"], outs["v"] = k, v
-        mixer = out_proj(attention(q, k, v, q_pos=positions, window=window,
-                                   softcap=cfg.attn_logit_softcap), p["attn"])
+        mixer = shard(out_proj(attention(
+            q, k, v, q_pos=positions, window=window,
+            softcap=cfg.attn_logit_softcap), p["attn"]), "act_resid")
         if cfg.hybrid:
             mixer = rmsnorm(mixer, p["attn_out_norm"], cfg.rmsnorm_eps)
     if cfg.has_ssm:
-        s_out, (outs["ssm"], outs["conv"]) = ssm_mod.mamba2_forward(
-            x, p["ssm"], cfg=cfg)
+        s_out, (outs["ssm"], outs["conv"]) = ssm_mod.mixer(
+            ssm_mod.mamba2_forward, x, p["ssm"], cfg=cfg)
         mixer = _mix(mixer, s_out, p, cfg)
-    h, aux = feed_forward(h + mixer, p, cfg)
+    h, aux = feed_forward(h + mixer, p, cfg, shard)
     if aux is not None:
         outs["aux"] = aux
-    return h, outs
+    return shard(h, "act_resid"), outs
 
 
 def _mix(a_out, s_out, p: dict, cfg: ModelConfig):
@@ -260,20 +290,21 @@ def _mix(a_out, s_out, p: dict, cfg: ModelConfig):
     return 0.5 * (a_out + rmsnorm(s_out, p["ssm_out_norm"], cfg.rmsnorm_eps))
 
 
-def logits_of(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+def logits_of(params: dict, cfg: ModelConfig, h: torch.Tensor,
+              shard=noshard) -> torch.Tensor:
     """f32 logits of the hidden state: the final norm, then ``lm_head``, or
     ``embed.T`` with ``cfg.tie_embeddings`` (JAX's ``_logits``), cast to
-    ``h``'s dtype at use."""
+    ``h``'s dtype at use; tagged ``logits``."""
     h = rmsnorm(h, params["final_norm"], cfg.rmsnorm_eps)
     table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (h @ table.to(h.dtype)).float()
+    return shard((h @ table.to(h.dtype)).float(), "logits")
 
 
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
            frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
     """Token embeddings ``[B, S, D]`` in the model dtype; ``frontend_embeds``
     ``[B, Sf, D]`` replaces the first Sf positions (JAX's ``_embed``)."""
-    h = params["embed"][tokens].to(dtype_of(cfg))
+    h = lookup(params["embed"], tokens).to(dtype_of(cfg))
     if frontend_embeds is not None:
         sf = frontend_embeds.shape[1]
         h = torch.cat([frontend_embeds.to(h.dtype), h[:, sf:]], dim=1)
@@ -281,7 +312,8 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _run_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-              windows, frontend_embeds, keep: bool, remat: bool = False):
+              windows, frontend_embeds, keep: bool, remat: bool = False,
+              shard=noshard):
     """Every layer over the whole sequence (``block_full``): the final
     hidden state ``[B, S, D]`` (before the final norm), with ``keep`` each
     layer's cache outputs, and the layers' MoE losses summed (a 0-d f32;
@@ -290,7 +322,7 @@ def _run_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     layer under ``torch.utils.checkpoint`` (non-reentrant): its
     activations are recomputed in the backward instead of kept."""
     B, S = tokens.shape
-    h = _embed(params, cfg, tokens, frontend_embeds)
+    h = shard(_embed(params, cfg, tokens, frontend_embeds), "act_resid")
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S).contiguous()
     cos = sin = None
@@ -303,10 +335,12 @@ def _run_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         if remat:
             h, outs = torch.utils.checkpoint.checkpoint(
                 block_full, h, p, cfg, window=windows[l],
-                positions=positions, cos=cos, sin=sin, use_reentrant=False)
+                positions=positions, cos=cos, sin=sin, shard=shard,
+                use_reentrant=False)
         else:
             h, outs = block_full(h, p, cfg, window=windows[l],
-                                 positions=positions, cos=cos, sin=sin)
+                                 positions=positions, cos=cos, sin=sin,
+                                 shard=shard)
         if "aux" in outs:
             aux = aux + outs.pop("aux")
         if keep:
@@ -316,7 +350,7 @@ def _run_full(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             frontend_embeds: Optional[torch.Tensor] = None,
-            remat: bool = False, long_context: bool = False,
+            shard=noshard, remat: bool = False, long_context: bool = False,
             return_hidden: bool = False):
     """Training / scoring pass over ``tokens`` ``[B, S]``: (logits f32
     ``[B, S, V]``, aux), or with ``return_hidden`` (the hidden state
@@ -335,45 +369,53 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``loss_fn`` passes True) checkpoints each layer
     (``torch.utils.checkpoint``, non-reentrant): the same loss and
     gradients, bit for bit, for one more forward a layer.
-    JAX's ``shard`` (waits for the port of ``launch/``) and ``unroll`` (a
-    ``lax.scan`` knob; eager layers need none) are not accepted.
+    ``shard`` is JAX's hook (module doc): with DTensor parameters and
+    ``launch.sharding.ShardingRules.shard`` the pass runs sharded, each
+    attention call on local shards. JAX's ``unroll`` (a ``lax.scan``
+    knob; eager layers need none) is not accepted.
     """
     S = tokens.shape[1]
-    h, _, aux = _run_full(params, cfg, tokens,
-                          _windows(cfg, S, long_context), frontend_embeds,
-                          keep=False, remat=remat)
-    if return_hidden:
-        return h, aux
-    return logits_of(params, cfg, h), aux
+    with sharded(params):
+        h, _, aux = _run_full(params, cfg, tokens,
+                              _windows(cfg, S, long_context),
+                              frontend_embeds, keep=False, remat=remat,
+                              shard=shard)
+        if return_hidden:
+            return h, aux
+        return logits_of(params, cfg, h, shard), aux
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             max_len: Optional[int] = None,
             frontend_embeds: Optional[torch.Tensor] = None,
-            long_context: bool = False, logits_last_only: bool = False):
+            shard=noshard, long_context: bool = False,
+            logits_last_only: bool = False):
     """Run the prompt ``[B, S]``; returns (logits, cache) with cache
     ``{"length": [B], "k"/"v": [L, B, max_len, KV, hd]}`` (zero past S)
     for attention, plus ``"ssm"`` ``[L, B, nh, hp, n]`` (f32) and
     ``"conv"`` ``[L, B, D_CONV-1, conv_dim]`` for SSM layers. Attention
     windows are the layers' windows at ``max_len``, as the JAX ``prefill``
     takes them. ``logits_last_only`` computes the last position's logits
-    only. ``frontend_embeds`` as in :func:`forward`."""
+    only. ``frontend_embeds`` and ``shard`` as in :func:`forward`."""
     B, S = tokens.shape
     max_len = max_len or S
-    h, per_layer, _ = _run_full(params, cfg, tokens,
-                                _windows(cfg, max_len, long_context),
-                                frontend_embeds, keep=True)
-    logits = logits_of(params, cfg, h[:, -1:] if logits_last_only else h)
-    cache = {"length": torch.full((B,), S, dtype=torch.int32,
-                                  device=tokens.device)}
-    if cfg.has_attention:
-        pad = (0, 0, 0, 0, 0, max_len - S)
-        for key in ("k", "v"):
-            cache[key] = torch.nn.functional.pad(
-                torch.stack([o[key] for o in per_layer]), pad)
-    if cfg.has_ssm:
-        for key in ("ssm", "conv"):
-            cache[key] = torch.stack([o[key] for o in per_layer])
+    with sharded(params):
+        h, per_layer, _ = _run_full(params, cfg, tokens,
+                                    _windows(cfg, max_len, long_context),
+                                    frontend_embeds, keep=True, shard=shard)
+        logits = logits_of(params, cfg,
+                           h[:, -1:] if logits_last_only else h, shard)
+        cache = {"length": torch.full((B,), S, dtype=torch.int32,
+                                      device=tokens.device)}
+        if cfg.has_attention:
+            pad = (0, 0, 0, 0, 0, max_len - S)
+            for key in ("k", "v"):
+                cache[key] = shard(torch.nn.functional.pad(
+                    torch.stack([o[key] for o in per_layer]), pad),
+                    "cache_kv")
+        if cfg.has_ssm:
+            for key in ("ssm", "conv"):
+                cache[key] = torch.stack([o[key] for o in per_layer])
     return logits, cache
 
 
@@ -447,8 +489,33 @@ def extend(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return logits_of(params, cfg, h), new_cache
 
 
+def _write_row(c: torch.Tensor, new: torch.Tensor, rows: torch.Tensor,
+               at: torch.Tensor) -> None:
+    """``c[rows[b], at[b]] = new[b]`` for a layer's cache ``c`` ``[B, S,
+    KV, hd]`` (``rows = arange(B)``), in place. A DTensor cache (batch and
+    sequence may be split) takes an elementwise select over its local
+    shards instead of the row scatter."""
+    if not isinstance(c, DTensor):
+        c[rows, at] = new
+        return
+    hit = torch.arange(c.shape[1], device=at.device) == at[:, None]
+    c.copy_(torch.where(hit[:, :, None, None], new[:, None], c))
+
+
+def _whole_heads(q: torch.Tensor) -> torch.Tensor:
+    """A decode query ``[B, H, hd]``; as a DTensor, its heads gathered and
+    any partial sum reduced, the batch left split: the plain version
+    regroups the heads by KV head, which a head split cannot follow (48
+    heads in 8 groups on a 16-way axis). Its split sequence (the cache's)
+    DTensor reduces as the softmax needs."""
+    if not isinstance(q, DTensor):
+        return q
+    return q.redistribute(placements=[
+        pl if pl == Shard(0) else Replicate() for pl in q.placements])
+
+
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                cache: dict, *, long_context: bool = False):
+                cache: dict, *, shard=noshard, long_context: bool = False):
     """One greedy-decode step over a dense cache (the engine's dense loop:
     every SSM or hybrid model, and the oracle of the paged loop).
 
@@ -462,51 +529,56 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     reads the first ``length + 1`` rows within each layer's window
     through the dense decode kernel; the SSM layers take one recurrent
     step. Returns (logits ``[B, V]``, cache with ``length + 1`` and the
-    new SSM states).
+    new SSM states). ``shard`` as in :func:`forward`; on DTensors the
+    attention is the plain version's (the kernel takes no DTensor).
     """
-    B = token.shape[0]
-    h = params["embed"][token][:, None].to(dtype_of(cfg))
-    length = cache["length"]
-    new_cache = dict(cache)
-    if cfg.has_attention:
-        cos, sin = rope_cos_sin(length[:, None], cfg.resolved_head_dim,
-                                cfg.rope_theta)
-        kc, vc = cache["k"], cache["v"]
-        windows = _windows(cfg, kc.shape[2], long_context)
-        rows = torch.arange(B, device=token.device)
-        at = length.long()
-        kv_len = length + 1
-    states, convs = [], []
-    for l in range(cfg.n_layers):
-        p = layer(params, l)
-        x = rmsnorm(h, p["ln1"], cfg.rmsnorm_eps)
-        mixer = None
+    with sharded(params):
+        B = token.shape[0]
+        h = lookup(params["embed"], token)[:, None].to(dtype_of(cfg))
+        length = cache["length"]
+        new_cache = dict(cache)
         if cfg.has_attention:
-            q, k, v = project_qkv(x, p["attn"], cfg)
-            q = apply_rope(q, cos, sin)
-            k = apply_rope(k, cos, sin)
-            kc[l][rows, at] = k[:, 0].to(kc.dtype)
-            vc[l][rows, at] = v[:, 0].to(vc.dtype)
-            o = ops.flash_decode(
-                q[:, 0].to(torch.promote_types(q.dtype, kc.dtype))
-                .contiguous(), kc[l], vc[l], kv_len, windows[l],
-                softcap=cfg.attn_logit_softcap)
-            mixer = out_proj(o[:, None], p["attn"])
-            if cfg.hybrid:
-                mixer = rmsnorm(mixer, p["attn_out_norm"], cfg.rmsnorm_eps)
+            cos, sin = rope_cos_sin(length[:, None], cfg.resolved_head_dim,
+                                    cfg.rope_theta)
+            kc, vc = cache["k"], cache["v"]
+            windows = _windows(cfg, kc.shape[2], long_context)
+            rows = torch.arange(B, device=token.device)
+            at = length.long()
+            kv_len = length + 1
+        states, convs = [], []
+        for l in range(cfg.n_layers):
+            p = layer(params, l)
+            x = rmsnorm(h, p["ln1"], cfg.rmsnorm_eps)
+            mixer = None
+            if cfg.has_attention:
+                q, k, v = project_qkv(x, p["attn"], cfg)
+                q = apply_rope(q, cos, sin)
+                k = apply_rope(k, cos, sin)
+                _write_row(kc[l], k[:, 0].to(kc.dtype), rows, at)
+                _write_row(vc[l], v[:, 0].to(vc.dtype), rows, at)
+                o = ops.flash_decode(
+                    _whole_heads(q[:, 0].to(torch.promote_types(
+                        q.dtype, kc.dtype))).contiguous(),
+                    kc[l], vc[l], kv_len, windows[l],
+                    softcap=cfg.attn_logit_softcap)
+                mixer = shard(out_proj(o[:, None], p["attn"]), "act_resid")
+                if cfg.hybrid:
+                    mixer = rmsnorm(mixer, p["attn_out_norm"],
+                                    cfg.rmsnorm_eps)
+            if cfg.has_ssm:
+                s_out, (st, cv) = ssm_mod.mixer(
+                    ssm_mod.mamba2_decode, x, p["ssm"], cfg=cfg,
+                    state=cache["ssm"][l], conv_state=cache["conv"][l])
+                states.append(st)
+                convs.append(cv)
+                mixer = _mix(mixer, s_out, p, cfg)
+            h, _ = feed_forward(h + mixer, p, cfg, shard)
+            h = shard(h, "act_resid")
+        logits = logits_of(params, cfg, h, shard)[:, 0]
         if cfg.has_ssm:
-            s_out, (st, cv) = ssm_mod.mamba2_decode(
-                x, p["ssm"], cfg=cfg, state=cache["ssm"][l],
-                conv_state=cache["conv"][l])
-            states.append(st)
-            convs.append(cv)
-            mixer = _mix(mixer, s_out, p, cfg)
-        h, _ = feed_forward(h + mixer, p, cfg)
-    logits = logits_of(params, cfg, h)[:, 0]
-    if cfg.has_ssm:
-        new_cache["ssm"] = torch.stack(states)
-        new_cache["conv"] = torch.stack(convs)
-    new_cache["length"] = length + 1
+            new_cache["ssm"] = torch.stack(states)
+            new_cache["conv"] = torch.stack(convs)
+        new_cache["length"] = length + 1
     return logits, new_cache
 
 

@@ -8,6 +8,10 @@ returned (JAX returns new trees). At Qwen3-4B a new tree would double the
 8 GB of bf16 weights, and each f32 temporary of the largest leaf
 (``blocks.mlp.w_gate``, ``[36, 2560, 9728]``) is 3.6 GB, so a stacked leaf
 is updated one slice of at most :data:`PART` elements at a time.
+
+DTensor parameters (a sharded model, ``launch.sharding``) take moments
+placed like themselves; the update is elementwise, so it walks each
+rank's local shards, and only the global norm combines across ranks.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from dataclasses import dataclass
 from typing import Iterator, List, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Shard
 
 #: elements of one slice of a leaf updated at a time (f32 temporaries of
 #: at most 256 MB each)
@@ -72,9 +77,14 @@ def parts(x: torch.Tensor) -> Iterator[torch.Tensor]:
         yield x[i:i + n]
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; a plain tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def init_adamw(params: dict) -> AdamWState:
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+    zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
     dev = tree_leaves(params)[0][1].device
     return AdamWState(torch.zeros((), dtype=torch.int32, device=dev), zeros,
                       tree_map(torch.clone, zeros))
@@ -92,13 +102,25 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
+def _square_sums(g: torch.Tensor) -> Iterator[torch.Tensor]:
+    """f32 sums of ``g^2``, one per slice of :func:`parts`. A DTensor leaf
+    gives one: its local slices' sum, added over the mesh dims that shard
+    it."""
+    if not isinstance(g, DTensor):
+        yield from (part.float().square().sum() for part in parts(g))
+        return
+    s = sum(part.float().square().sum() for part in parts(g.to_local()))
+    yield DTensor.from_local(
+        s, g.device_mesh, [Partial() if isinstance(pl, Shard) else pl
+                           for pl in g.placements]).full_tensor()
+
+
 def global_norm(grads: dict) -> torch.Tensor:
     """f32 ``sqrt(sum g^2)`` over every leaf (each summed in f32, slice by
     slice)."""
     total = None
     for _, g in tree_leaves(grads):
-        for part in parts(g):
-            s = part.float().square().sum()
+        for s in _square_sums(g):
             total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -128,6 +150,9 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict,
     bc2 = 1 - b2 ** step.float()
     for path, p in tree_leaves(params):
         g, m, v = _get(grads, path), _get(state.m, path), _get(state.v, path)
+        if isinstance(p, DTensor) and g.placements != p.placements:
+            g = g.redistribute(placements=p.placements)
+        p, g, m, v = _local(p), _local(g), _local(m), _local(v)
         for ps, gs, ms, vs in zip(parts(p), parts(g), parts(m), parts(v)):
             gf = gs.float() * scale
             ms.mul_(b1).add_(gf * (1 - b1))

@@ -5,10 +5,13 @@ loss), AdamW, per-layer rematerialisation — the JAX package's
 Gradients come from ``torch.autograd.grad`` over the parameter leaves;
 attention differentiates through ``ops.flash_attention``'s autograd
 function, whose backward is the hand-written kernel on the card. JAX's
-``shard`` and ``unroll`` wait for the port of ``launch/``.
+``shard`` hook reaches the forward (``launch.sharding``: DTensor
+parameters train sharded, the optimizer walking local shards); JAX's
+``unroll`` is a ``lax.scan`` knob that eager layers do not need.
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -16,26 +19,76 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import forward, init_params
-from repro_torch.models.transformer import logits_of, resolve_device
+from repro_torch.models.layers import noshard, shard_index
+from repro_torch.models.transformer import logits_of, resolve_device, sharded
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                             init_adamw, tree_leaves)
+
+
+def _label_logp(logits: torch.Tensor, labels: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """``sum(mask * log p(label))`` over the positions of logits [B,S,V]."""
+    if isinstance(logits, DTensor):
+        return _vocab_parallel_logp(logits, labels, mask)
+    logp = F.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, labels[..., None].long())[..., 0]
+    return (ll * mask).sum()
+
+
+def _vocab_parallel_logp(logits, labels, mask):
+    """:func:`_label_logp` of DTensor logits whose vocab may be split
+    (the ``logits`` tag), as XLA partitions a log-softmax: the max and the
+    sum of exponentials reduce over the vocab shards, and each rank picks
+    the labels inside its shard (zero elsewhere, summed over the shards),
+    so no rank holds the whole vocab. The max is detached: the
+    log-sum-exp does not depend on it. Each reduction is laid out as the
+    batch is, replicated over the vocab's axes; DTensor would otherwise
+    scatter it over the batch, and its backward would need all-to-alls
+    back to the logits' layout."""
+    mesh = logits.device_mesh
+    vocab = [i for i, pl in enumerate(logits.placements) if pl == Shard(2)]
+    lp = [pl if pl in (Shard(0), Shard(2)) else Replicate()
+          for pl in logits.placements]
+    bp = [Shard(0) if pl == Shard(0) else Replicate() for pl in lp]
+    m = logits.amax(dim=-1, keepdim=True).detach().redistribute(
+        placements=bp)
+    lse = m[..., 0] + (logits - m).exp().sum(dim=-1).redistribute(
+        placements=bp).log()
+    V = logits.shape[-1] // math.prod(mesh.size(i) for i in vocab)
+    v0 = shard_index(mesh, vocab) * V
+
+    def pick(lg, lab):
+        idx = lab.long() - v0
+        inside = (idx >= 0) & (idx < V)
+        got = lg.gather(-1, idx.clamp(0, V - 1)[..., None])[..., 0]
+        return torch.where(inside, got, 0.0)
+
+    if not isinstance(labels, DTensor):
+        labels = distribute_tensor(labels, mesh, [Replicate()] * mesh.ndim,
+                                   src_data_rank=None)
+    picked = local_map(
+        pick, out_placements=[Partial() if i in vocab else pl
+                              for i, pl in enumerate(bp)],
+        in_placements=(lp, bp), in_grad_placements=(lp, bp),
+        device_mesh=mesh, redistribute_inputs=True)(logits, labels)
+    return ((picked.redistribute(placements=bp) - lse) * mask).sum()
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross entropy. logits [B,S,V], labels/mask [B,S]."""
-    logp = F.log_softmax(logits, dim=-1)
-    ll = logp.gather(-1, labels[..., None].long())[..., 0]
-    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return -_label_logp(logits, labels, mask) / torch.clamp(mask.sum(),
+                                                            min=1.0)
 
 
 def _chunk_nll(h_c, l_c, m_c, params, cfg):
-    logp = F.log_softmax(logits_of(params, cfg, h_c), dim=-1)
-    ll = logp.gather(-1, l_c[..., None].long())[..., 0]
-    return (ll * m_c).sum()
+    return _label_logp(logits_of(params, cfg, h_c), l_c, m_c)
 
 
 def chunked_xent(params: dict, cfg: ModelConfig, h: torch.Tensor,
@@ -65,22 +118,25 @@ def chunked_xent(params: dict, cfg: ModelConfig, h: torch.Tensor,
 
 
 def loss_fn(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            mask: torch.Tensor, *, remat: bool = True,
+            mask: torch.Tensor, *, shard=noshard, remat: bool = True,
             aux_weight: float = 0.01,
             frontend_embeds: Optional[torch.Tensor] = None):
     """(total loss, {"xent", "aux"}): the next-token xent of ``tokens``
     [B, S] under ``mask`` (chunked when ``cfg.xent_chunk``), plus
     ``aux_weight`` times the MoE load-balance loss for an MoE model."""
-    if cfg.xent_chunk:
-        h, aux = forward(params, cfg, tokens, remat=remat,
-                         frontend_embeds=frontend_embeds, return_hidden=True)
-        loss = chunked_xent(params, cfg, h[:, :-1], tokens[:, 1:],
-                            mask[:, 1:], cfg.xent_chunk)
-    else:
-        logits, aux = forward(params, cfg, tokens, remat=remat,
-                              frontend_embeds=frontend_embeds)
-        loss = softmax_xent(logits[:, :-1], tokens[:, 1:], mask[:, 1:])
-    total = loss + (aux_weight * aux if cfg.is_moe else 0.0)
+    with sharded(params):
+        if cfg.xent_chunk:
+            h, aux = forward(params, cfg, tokens, shard=shard, remat=remat,
+                             frontend_embeds=frontend_embeds,
+                             return_hidden=True)
+            loss = chunked_xent(params, cfg, h[:, :-1], tokens[:, 1:],
+                                mask[:, 1:], cfg.xent_chunk)
+        else:
+            logits, aux = forward(params, cfg, tokens, shard=shard,
+                                  remat=remat,
+                                  frontend_embeds=frontend_embeds)
+            loss = softmax_xent(logits[:, :-1], tokens[:, 1:], mask[:, 1:])
+        total = loss + (aux_weight * aux if cfg.is_moe else 0.0)
     return total, {"xent": loss, "aux": aux}
 
 
@@ -97,15 +153,17 @@ def _with_grad(params: dict):
 
 
 def value_and_grad(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                   mask: torch.Tensor, *, remat: bool = True,
+                   mask: torch.Tensor, *, shard=noshard, remat: bool = True,
+                   frontend_embeds: Optional[torch.Tensor] = None,
                    mark: Optional[Callable[[str], None]] = None):
     """(loss, parts, grads): :func:`loss_fn` and its gradient with respect
     to every parameter leaf, as a tree shaped like ``params``. ``mark``,
     if given, is called with ``"forward"`` once the loss is computed and
     ``"backward"`` once the gradients are (a timer's hook)."""
     tree, leaves = _with_grad(params)
-    with torch.enable_grad():
-        loss, parts = loss_fn(tree, cfg, tokens, mask, remat=remat)
+    with torch.enable_grad(), sharded(params):
+        loss, parts = loss_fn(tree, cfg, tokens, mask, shard=shard,
+                              remat=remat, frontend_embeds=frontend_embeds)
         if mark:
             mark("forward")
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -122,7 +180,7 @@ def value_and_grad(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return loss.detach(), {k: v.detach() for k, v in parts.items()}, out
 
 
-def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *,
+def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *, shard=noshard,
                     remat: bool = True,
                     mark: Optional[Callable[[str], None]] = None) -> Callable:
     """``train_step(params, opt_state, tokens, mask) -> (params, opt_state,
@@ -133,7 +191,8 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *,
 
     def train_step(params, opt_state, tokens, mask):
         loss, parts, grads = value_and_grad(params, cfg, tokens, mask,
-                                            remat=remat, mark=mark)
+                                            shard=shard, remat=remat,
+                                            mark=mark)
         params, opt_state, om = adamw_update(opt, params, grads, opt_state)
         del grads
         if mark:
