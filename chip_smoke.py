@@ -64,6 +64,22 @@ Phases (each prints its lines; any failure exits non-zero):
      per-agent outputs and first-token logits bit-equal, counted
      makespan below the synchronized one, every TokenDance kernel
      launched and no plain version;
+  8a. [pages] the main path's weights and trace served at other page
+     sizes: ``ServingEngine(params, cfg, block_select=16)`` (gen 32) and
+     ``block_select=64, gen_len=64``, counts zeroed before and read after
+     (``flash_prefill``, ``flash_decode_paged``, ``rope_align`` and
+     ``block_diff`` launched, no plain version), per-round recover /
+     restore / decode / store times and restore pages; each again with
+     ``paged_decode=False``: outputs, first-token logits and persistent
+     bytes bit-equal; the paged decode kernel at each run's largest call
+     against its plain version (bf16 and f32, twice for the same bits),
+     timed in f32 beside SDPA over the gathered rows and its bound;
+  8b. [page edges] ``flash_decode_paged`` at pages of 16, 24, 32, 64 and
+     128 rows (576 positions, span 571), at Qwen2.5-7B's heads (hd 128)
+     and Gemma3-12B's (hd 256), bf16 and f32: as it is, with a binding
+     window, capped at 30 and with a tail; each held to its plain
+     version, twice bit-equal and bit-equal to the dense decode kernel
+     on the gathered rows; timed beside SDPA and its bound;
   9. [forward] ``transformer.forward`` on the main path's weights over
      tokens [8, 544] from a seeded generator: 28 ``flash_prefill``
      launches and no plain version, logits bit-equal to
@@ -204,6 +220,14 @@ Phases (each prints its lines; any failure exits non-zero):
      plain version on that family (and a bf16 copy of it), aligned and
      with shifted frames, with CUDA-event times of (a) the family
      kernel, (b) the 7 per-mirror launches summed and (c) the dense path.
+     Then [restore gemma3-1b]: the same walkthrough at Gemma3-1B full
+     width (26 layers, head dim 256, f32 recovery) at ``block_select``
+     64 (private prefix 64, S 1088, nb 17: 2048 (token, 16-byte chunk)
+     pairs a tile, past one 1024-thread block); and [restore shapes]:
+     both kernels on seeded families at bt 64 / hd 256 (f32), bt 128 / hd
+     128 (f32), bt 128 / hd 256 (bf16) and Gemma3-12B's heads (KV 8, hd
+     256, bt 32, 12 of 48 layers; f32), exact against the plain version
+     in aligned frames, timed.
 The line before the last is the kernel table as JSON; the last line is
 the result as JSON.
 """
@@ -1293,6 +1317,180 @@ def continuous(qwen):
     assert not any(plain.values()), f"plain versions ran: {plain}"
     cont.engine.manager.check()
     say(f"[continuous] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ------------------------------------------------------------ [pages]
+PAGE_CASES = ((16, 32), (64, 64))       # (block_select, gen_len)
+
+
+def decode_row_times(timer, q, pk, pv, pidx, span):
+    """CUDA-event times of ``flash_decode_paged`` on one call (no tail, no
+    window, no cap), its plain version and SDPA over the gathered rows,
+    and its bound: q, the table, the lengths and the output once, each
+    span row's K and V once; 4 hd flops a row and query head."""
+    from repro_torch.kernels import ops, ref
+
+    B, H, hd = q.shape
+    _, bt, KV, _ = pk.shape
+    nbt = pidx.shape[1]
+    kd = pk[pidx.long()].reshape(B, nbt * bt, KV, hd)
+    vd = pv[pidx.long()].reshape(B, nbt * bt, KV, hd)
+    mask = torch.arange(nbt * bt, device=q.device)[None] < span[:, None]
+    cols = int(span.long().sum().item())
+    t = decode_times(
+        timer, lambda: ops.flash_decode_paged(q, pk, pv, pidx, span),
+        lambda: ref.flash_decode_paged_ref(q, pk, pv, pidx, span),
+        sdpa_decode(q, kd, vd, mask),
+        nbytes(q, pidx, span) + nbytes(q)
+        + 2 * cols * KV * hd * pk.element_size(), 4 * hd * H * cols,
+        q.dtype)
+    del kd, vd
+    return t
+
+
+def pages_phase(dev, qwen):
+    """[pages]: the main path's weights and trace served by
+    ``ServingEngine(params, cfg, block_select=16)`` (gen 32) and
+    ``block_select=64, gen_len=64``, counts zeroed before and read after
+    (every main-path kernel launched, no plain version), then again with
+    ``paged_decode=False`` at the same block_select: outputs, first-token
+    logits and persistent bytes bit-equal. The paged decode kernel is held
+    at each run's largest call in bf16 and f32 (twice for the same bits)
+    and timed in f32, the path's type from round 1. Returns the
+    kernel-table rows."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving import ServingEngine
+
+    t_phase = time.perf_counter()
+    params, cfg, trace = qwen["params"], qwen["cfg"], qwen["trace"]
+    timer = Timer(dev)
+    rows = []
+    for bs, gen in PAGE_CASES:
+        tag = f"pages {bs}"
+        kw = dict(block_select=bs, gen_len=gen, keep_logits=True)
+        engine = ServingEngine(params, cfg, **kw)
+        stats, launches, rec = serve_phase(tag, engine, trace, ops)
+        del engine
+        missing = [k for k in ("rope_align", "block_diff", "flash_prefill",
+                               "flash_decode_paged") if launches[k] == 0]
+        assert not missing, f"kernels never launched at {tag}: {missing}"
+        for st in stats:
+            assert st.prompt_len % bs == 0, (tag, st.prompt_len)
+            assert st.outputs.shape == (8, gen), st.outputs.shape
+            assert ((st.outputs >= 0) & (st.outputs < cfg.vocab_size)).all()
+            assert np.isfinite(st.first_logits).all(), (tag, st.round_idx)
+        engine = ServingEngine(params, cfg, paged_decode=False, **kw)
+        dense, dl, drec = serve_phase(f"{tag} dense", engine, trace, ops)
+        del engine, drec
+        bit_equal(f"{tag} dense", stats, dense,
+                  f"the paged loop's at block_select {bs}")
+        assert dl["flash_decode"] > 0 and dl["flash_decode_paged"] == 0, dl
+
+        _, args, _ = rec.kept["flash_decode_paged"]
+        del rec
+        q, pk, pv, pidx, span = args[:5]
+        assert pk.shape[1] == bs, (tag, tuple(pk.shape))
+        errs = {}
+        for dt in (torch.bfloat16, torch.float32):
+            a = [q.to(dt), pk.to(dt), pv.to(dt), pidx, span]
+            got = ops.flash_decode_paged(*a)
+            errs[dt] = check("flash_decode_paged", got,
+                             ref.flash_decode_paged_ref(*a), dt)
+            assert torch.equal(ops.flash_decode_paged(*a), got), \
+                (tag, dt, "two calls differ")
+        a = [q.float(), pk.float(), pv.float(), pidx, span]
+        t = decode_row_times(timer, *a)
+        say(f"[kernel] flash_decode_paged, {tag} call, q {list(q.shape)} "
+            f"over {pidx.shape[1]} pages of {bs}, span {span.tolist()}, "
+            f"f32: {times_line(t)}, max abs err {errs[torch.bfloat16]:.3g} "
+            f"(bf16) / {errs[torch.float32]:.3g} (f32); two calls "
+            f"bit-equal")
+        rows.append(dict(
+            name="flash_decode_paged", call=tag,
+            shape=list(q.shape) + [pidx.shape[1] * bs],
+            launches=launches["flash_decode_paged"],
+            max_abs_err=errs[q.dtype], max_abs_err_f32=errs[torch.float32],
+            **t))
+        del a, args, q, pk, pv
+        torch.cuda.empty_cache()
+    say(f"[pages] phase {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def page_edges(dev):
+    """[page edges]: ``flash_decode_paged`` at pages of 16, 24, 32, 64 and
+    128 rows over 576 positions (8 sequences, a span of 571: ragged by 5),
+    at Qwen2.5-7B's heads (28 over 4, hd 128) and Gemma3-12B's (16 over 8,
+    hd 256), in bf16 and f32: as it is, with a binding window of 100,
+    capped at 30 and with a tail of 45 rows. Each call is held to its
+    plain version, gives the same bits twice and equals the dense decode
+    kernel on the rows gathered in position order bit for bit; the first
+    is timed beside its plain version, SDPA over the gathered rows and its
+    bound (these calls are on no path: lines, not kernel-table rows)."""
+    from repro_torch.kernels import ops, ref
+
+    t_phase = time.perf_counter()
+    timer = Timer(dev)
+    g = torch.Generator(device=dev).manual_seed(27)
+    B, R, Tp, span_len = 8, 576, 64, 571
+    for H, KV, hd in ((28, 4, 128), (16, 8, 256)):
+        for bt in (16, 24, 32, 64, 128):
+            nbt = -(-R // bt)
+            P = B * nbt + 7
+            for dt in (torch.bfloat16, torch.float32):
+                def rnd(*shape):
+                    return torch.randn(*shape, generator=g,
+                                       device=dev).to(dt)
+
+                q, pk, pv = rnd(B, H, hd), rnd(P, bt, KV, hd), \
+                    rnd(P, bt, KV, hd)
+                tk, tv = rnd(B, Tp, KV, hd), rnd(B, Tp, KV, hd)
+                pidx = torch.randperm(P, generator=g, device=dev)[
+                    : B * nbt].reshape(B, nbt).to(torch.int32).contiguous()
+                span = torch.full((B,), span_len, device=dev,
+                                  dtype=torch.int32)
+                gk = pk[pidx.long()].reshape(B, nbt * bt, KV, hd)
+                gv = pv[pidx.long()].reshape(B, nbt * bt, KV, hd)
+                errs = []
+                for case, tail, kw in (("plain", (), {}),
+                                       ("window 100", (), dict(window=100)),
+                                       ("softcap 30", (), dict(softcap=30.0)),
+                                       ("tail 45", (tk, tv, 45), {})):
+                    got = ops.flash_decode_paged(q, pk, pv, pidx, span,
+                                                 *tail, **kw)
+                    errs.append(check("flash_decode_paged", got,
+                                      ref.flash_decode_paged_ref(
+                                          q, pk, pv, pidx, span, *tail,
+                                          **kw), dt))
+                    assert torch.equal(ops.flash_decode_paged(
+                        q, pk, pv, pidx, span, *tail, **kw), got), \
+                        (bt, hd, dt, case, "two calls differ")
+                    tl = tail[2] if tail else 0
+                    kd = torch.zeros(B, nbt * bt + Tp, KV, hd, device=dev,
+                                     dtype=dt)
+                    vd = torch.zeros_like(kd)
+                    kd[:, :span_len], vd[:, :span_len] = \
+                        gk[:, :span_len], gv[:, :span_len]
+                    if tl:
+                        kd[:, span_len:span_len + tl] = tk[:, :tl]
+                        vd[:, span_len:span_len + tl] = tv[:, :tl]
+                    dense = ops.flash_decode(
+                        q, kd, vd, (span + tl).to(torch.int32),
+                        kw.get("window", kd.shape[1]),
+                        softcap=kw.get("softcap", 0.0))
+                    assert torch.equal(dense, got), \
+                        (bt, hd, dt, case, "paged != dense")
+                    del kd, vd
+                t = decode_row_times(timer, q, pk, pv, pidx, span)
+                say(f"[page edges] flash_decode_paged, pages of {bt}, q "
+                    f"{list(q.shape)} over {nbt} pages ({KV} KV heads), span "
+                    f"{span_len}, {dt}: {times_line(t)}; plain / window / "
+                    f"softcap / tail max abs err "
+                    f"{' / '.join(f'{e:.3g}' for e in errs)}; twice and "
+                    f"against the dense kernel bit-equal")
+                del q, pk, pv, tk, tv, gk, gv
+    torch.cuda.empty_cache()
+    say(f"[page edges] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 # ------------------------------------------- the Qwen and Gemma3 families
@@ -2755,81 +2953,32 @@ def smoke_parity(dev):
 
 
 # ------------------------------------------------------------- phase 7
-def restore(dev):
-    """The storage walkthrough at full width and the two restore kernels
-    on its family; returns their kernel-table rows."""
-    from repro_torch.configs import get_config
-    from repro_torch.core.diff_store import MirrorDiff, MirrorHandle, \
-        pack_family
-    from repro_torch.core.restore import dense_restore_paged
-    from repro_torch.examples.compression_demo import group_tokens, \
-        walkthrough
+def hold_restores(tag, dev, timer, master_k, master_v, packs, maps, theta,
+                  dtypes, dense=None, what=""):
+    """Both restore kernels on one family: ``packs`` maps "aligned" and
+    "shifted" to (diff_k, diff_v, diff_slot, delta_pos) in the family
+    layout, ``maps`` the pages [M, nb]. For each dtype: the family kernel
+    (ONE launch) and the per-mirror kernel (M launches) against the plain
+    version into fresh pools — exact in aligned frames, V exact and K
+    within the tolerance in shifted ones — and, aligned, CUDA-event times
+    of (a) the family kernel, (b) the M per-mirror launches summed, their
+    plain versions and their bounds, and (c) ``dense(dt)`` where given;
+    ``what`` heads the printed line. Returns (errs, times)."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.models import init_params
 
-    cfg = get_config("qwen2.5-7b")
-    params = init_params(cfg, 0, device=dev)
-    tokens = group_tokens(cfg.vocab_size, 8, priv_len=32, block_len=128,
-                          seed=1)
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    wt = walkthrough(params, cfg, tokens, 32, ratio=0.05,
-                     log=lambda *a: say("[restore]", *a))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
-    plain = dict(ops.PLAIN_CALLS)
-    say(f"[restore] walkthrough {wall:.2f} s, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, launches "
-        f"{launches}, plain-version calls {plain}")
-    M = len(wt.handles)
-    assert M == 7, M
-    missing = [k for k in ("rope_align", "block_diff", "flash_prefill",
-                           "fused_diff_restore", "fused_family_restore")
-               if launches[k] == 0]
-    assert not missing, f"kernels never launched on the restore path: " \
-        f"{missing}"
-    assert launches["fused_family_restore"] == 1, launches
-    assert launches["fused_diff_restore"] == M, launches
-    assert not any(plain.values()), f"plain versions ran: {plain}"
-    st = wt.stats
-    say(f"[restore] compression: {st['n_caches']} caches, dense "
-        f"{st['dense_bytes']} B, stored {st['stored_bytes']} B, family "
-        f"{st['compression_ratio']:.4f}x, per mirror "
-        f"{st['per_mirror_ratio']:.4f}x, changed blocks "
-        f"{[h.diff.n_blocks for h in wt.handles]} of {st['total_blocks']}")
-    del params
-    torch.cuda.empty_cache()
-
-    theta = cfg.rope_theta
-    timer = Timer(dev)
-    L, S, KV, hd = wt.master.k.shape
-    bt = wt.handles[0].diff.block_tokens
-    nb = S // bt
+    L, S, KV, hd = master_k.shape
+    M, nb = maps.shape
+    bt = S // nb
     assert nb * bt == S, (S, bt)
-    maps = wt.slot_maps
-    pack = pack_family(wt.handles)
-    shifted = []
-    rng = np.random.default_rng(0)
-    for h in wt.handles:
-        d = h.diff
-        new = (d.old_pos + rng.integers(1, 2000, d.old_pos.shape)).astype(
-            np.int32)
-        shifted.append(MirrorHandle(h.master, MirrorDiff(
-            d.rid, d.master_rid, d.block_idx, d.k_vals, d.v_vals, d.old_pos,
-            new, d.seq_len, bt)))
-    spack = pack_family(shifted)
 
     def pools(dt):
         pk = torch.zeros((L, M * nb, bt, KV, hd), dtype=dt, device=dev)
         return pk, torch.zeros_like(pk)
 
     def inputs(dt, pk):
-        kb = wt.master.k.reshape(L, nb, bt, KV, hd).to(dt).contiguous()
-        vb = wt.master.v.reshape(L, nb, bt, KV, hd).to(dt).contiguous()
-        return (kb, vb, pk.diff_k.to(dt), pk.diff_v.to(dt), pk.diff_slot,
-                maps, pk.delta_pos)
+        kb = master_k.reshape(L, nb, bt, KV, hd).to(dt).contiguous()
+        vb = master_v.reshape(L, nb, bt, KV, hd).to(dt).contiguous()
+        return (kb, vb, pk[0].to(dt), pk[1].to(dt), pk[2], maps, pk[3])
 
     def dev_maps(a):
         return [torch.as_tensor(x, device=dev) for x in a]
@@ -2859,15 +3008,16 @@ def restore(dev):
     # written, K and V over all layers; plus the maps and the frequency
     # table. Per mirror, each launch reads nb blocks and writes nb pages.
     blk = L * bt * KV * hd
-    need_master = int((pack.diff_slot < 0).any(axis=0).sum())
-    n_diff = int((pack.diff_slot >= 0).sum())
+    slot = packs["aligned"][2]
+    need_master = int((slot < 0).any(axis=0).sum())
+    n_diff = int((slot >= 0).sum())
     map_b = 4 * (2 * M * nb + M * nb * bt) + 4 * hd // 2
 
     errs, times = {}, {}
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in dtypes:
         item = torch.tensor([], dtype=dt).element_size()
-        for name, pk in (("aligned", pack), ("shifted", spack)):
-            x = inputs(dt, pk)
+        for name in ("aligned", "shifted"):
+            x = inputs(dt, packs[name])
             want = family_plain(x, pools(dt))
             fam, per = launchers(x, pools(dt), pools(dt))
             got_f = fam()
@@ -2877,10 +3027,10 @@ def restore(dev):
                                ("fused_diff_restore", got_m)):
                 if name == "aligned":
                     assert torch.equal(got[0], want[0]) and \
-                        torch.equal(got[1], want[1]), (kname, dt)
+                        torch.equal(got[1], want[1]), (tag, kname, dt)
                     errs[(kname, dt)] = 0.0
                 else:
-                    assert torch.equal(got[1], want[1]), (kname, dt)
+                    assert torch.equal(got[1], want[1]), (tag, kname, dt)
                     errs[(kname, dt, "shifted")] = check(kname, got[0],
                                                          want[0], dt)
             if name != "aligned":
@@ -2898,14 +3048,12 @@ def restore(dev):
                                    0, dt),
                 mirror_bound=bound(M * 2 * blk * item * 2 * nb + map_b, 0,
                                    dt))
-            if dt == wt.master.k.dtype:
-                dense_out = pools(dt)
-                times[dt]["dense"] = timer(lambda: [
-                    dense_restore_paged(h, theta, maps[m], *dense_out)
-                    for m, h in enumerate(wt.handles)])
+            if dense is not None and dt == master_k.dtype:
+                times[dt]["dense"] = timer(dense(dt))
+            del x, want, got_f, got_m, out, fam, per
         tm = times[dt]
-        say(f"[restore] {dt}: (a) family kernel {tm['family']:.4f} ms "
-            f"(bound {tm['family_bound'][0]:.4f}), (b) 7 per-mirror "
+        say(f"[{tag}] {what}{dt}: (a) family kernel {tm['family']:.4f} ms "
+            f"(bound {tm['family_bound'][0]:.4f}), (b) {M} per-mirror "
             f"launches {tm['mirror']:.4f} ms (bound "
             f"{tm['mirror_bound'][0]:.4f}), (c) dense torch path "
             f"{tm.get('dense', float('nan')):.4f} ms; plain versions "
@@ -2913,18 +3061,165 @@ def restore(dev):
             f"{tm['mirror_plain']:.4f} ms; shifted-frame max abs err "
             f"family {errs[('fused_family_restore', dt, 'shifted')]:.3g} / "
             f"per mirror {errs[('fused_diff_restore', dt, 'shifted')]:.3g}")
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+def restore_walk(dev, arch, priv_len, block, tag, call=None):
+    """The storage walkthrough of ``arch`` at full width (bf16 weights,
+    random from seed 0): 8 agents, a private prefix of ``priv_len``, one
+    128-token shared block each, collective recovery at ``block_select``
+    ``block``, Master + 7 mirrors restored three ways (family kernel: ONE
+    launch; per-mirror kernel: 7; dense torch path), bit-equal; counts
+    zeroed just before and read just after. Then both restore kernels on
+    that family against their plain versions (``hold_restores``). Returns
+    their kernel-table rows (with ``call``, where given)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.diff_store import MirrorDiff, MirrorHandle, \
+        pack_family
+    from repro_torch.core.restore import dense_restore_paged
+    from repro_torch.examples.compression_demo import group_tokens, \
+        walkthrough
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+
+    cfg = get_config(arch)
+    params = init_params(cfg, 0, device=dev)
+    tokens = group_tokens(cfg.vocab_size, 8, priv_len=priv_len,
+                          block_len=128, seed=1)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    wt = walkthrough(params, cfg, tokens, priv_len, ratio=0.05,
+                     block_select=block, log=lambda *a: say(f"[{tag}]", *a))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    plain = dict(ops.PLAIN_CALLS)
+    say(f"[{tag}] walkthrough {wall:.2f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, launches "
+        f"{launches}, plain-version calls {plain}")
+    M = len(wt.handles)
+    assert M == 7, M
+    missing = [k for k in ("rope_align", "block_diff", "flash_prefill",
+                           "fused_diff_restore", "fused_family_restore")
+               if launches[k] == 0]
+    assert not missing, f"kernels never launched on the restore path: " \
+        f"{missing}"
+    assert launches["fused_family_restore"] == 1, launches
+    assert launches["fused_diff_restore"] == M, launches
+    assert not any(plain.values()), f"plain versions ran: {plain}"
+    st = wt.stats
+    say(f"[{tag}] compression: {st['n_caches']} caches, dense "
+        f"{st['dense_bytes']} B, stored {st['stored_bytes']} B, family "
+        f"{st['compression_ratio']:.4f}x, per mirror "
+        f"{st['per_mirror_ratio']:.4f}x, changed blocks "
+        f"{[h.diff.n_blocks for h in wt.handles]} of {st['total_blocks']}")
+    del params
+    torch.cuda.empty_cache()
+
+    theta = cfg.rope_theta
+    L, S, KV, hd = wt.master.k.shape
+    bt = wt.handles[0].diff.block_tokens
+    assert bt == block, (bt, block)
+    nb = S // bt
+    maps = wt.slot_maps
+    shifted = []
+    rng = np.random.default_rng(0)
+    for h in wt.handles:
+        d = h.diff
+        new = (d.old_pos + rng.integers(1, 2000, d.old_pos.shape)).astype(
+            np.int32)
+        shifted.append(MirrorHandle(h.master, MirrorDiff(
+            d.rid, d.master_rid, d.block_idx, d.k_vals, d.v_vals, d.old_pos,
+            new, d.seq_len, bt)))
+    packs = {name: (pk.diff_k, pk.diff_v, pk.diff_slot, pk.delta_pos)
+             for name, pk in (("aligned", pack_family(wt.handles)),
+                              ("shifted", pack_family(shifted)))}
+
+    def dense(dt):
+        out = (torch.zeros((L, M * nb, bt, KV, hd), dtype=dt, device=dev),
+               torch.zeros((L, M * nb, bt, KV, hd), dtype=dt, device=dev))
+        return lambda: [dense_restore_paged(h, theta, maps[m], *out)
+                        for m, h in enumerate(wt.handles)]
+
+    errs, times = hold_restores(tag, dev, Timer(dev), wt.master.k,
+                                wt.master.v, packs, maps, theta,
+                                (torch.float32, torch.bfloat16), dense)
     dt = wt.master.k.dtype
     tm = times[dt]
     shape = [M, L, nb, bt, KV, hd]
     rows = []
     for name, key in (("fused_diff_restore", "mirror"),
                       ("fused_family_restore", "family")):
-        rows.append(dict(
+        row = dict(
             name=name, shape=shape, max_abs_err=errs[(name, dt)],
             max_abs_err_f32=errs[(name, torch.float32)],
             ms=tm[key], plain_ms=tm[key + "_plain"],
             bound_ms=tm[key + "_bound"][0], bound_by=tm[key + "_bound"][1],
-            library_ms=None, launches=launches[name]))
+            library_ms=None, launches=launches[name])
+        if call:
+            row["call"] = call
+        rows.append(row)
+    return rows
+
+
+#: synthetic families past one 1024-thread block a tile (and Gemma3-12B's
+#: heads): (what, layers, prompt, block, KV heads, head dim, dtype)
+RESTORE_SHAPES = (
+    ("Gemma3-1B widths, bt 64 (2048 pairs a tile)", 26, 1088, 64, 1, 256,
+     torch.float32),
+    ("Qwen2.5-7B widths, bt 128 (2048 pairs)", 28, 1024, 128, 4, 128,
+     torch.float32),
+    ("Gemma3-1B widths, bt 128 (2048 pairs)", 26, 1024, 128, 1, 256,
+     torch.bfloat16),
+    ("Gemma3-12B widths, 12 of 48 layers, bt 32 (1024 pairs)", 12, 1088, 32,
+     8, 256, torch.float32),
+)
+
+
+def restore_shapes(dev):
+    """[restore shapes]: both restore kernels on synthetic families of 7
+    mirrors at ``RESTORE_SHAPES`` (master, diffs from a seeded generator;
+    a third of the blocks changed a mirror), held and timed by
+    ``hold_restores`` in the listed dtype (lines, not kernel-table rows:
+    no path makes these calls)."""
+    t_phase = time.perf_counter()
+    timer = Timer(dev)
+    g = torch.Generator(device=dev).manual_seed(31)
+    r = np.random.default_rng(31)
+    M = 7
+    for what, L, S, bt, KV, hd, dt in RESTORE_SHAPES:
+        nb = S // bt
+        ndb = max(1, nb // 3)
+        mk, mv = (torch.randn(L, S, KV, hd, generator=g, device=dev).to(dt)
+                  for _ in range(2))
+        dk, dv = (torch.randn(M, L, ndb, bt, KV, hd, generator=g,
+                              device=dev).to(dt) for _ in range(2))
+        slot = np.full((M, nb), -1, np.int32)
+        for m in range(M):
+            slot[m, r.choice(nb, ndb, replace=False)] = np.arange(ndb)
+        maps = r.permutation(M * nb).reshape(M, nb).astype(np.int32)
+        packs = {"aligned": (dk, dv, slot, np.zeros((M, nb, bt), np.int32)),
+                 "shifted": (dk, dv, slot,
+                             r.integers(1, 2000, (M, nb, bt)).astype(
+                                 np.int32))}
+        hold_restores("restore shapes", dev, timer, mk, mv, packs, maps, 1e6,
+                      (dt,), what=f"{what}, M {M}, {L} layers, nb {nb}, ")
+        del mk, mv, dk, dv, packs
+    torch.cuda.empty_cache()
+    say(f"[restore shapes] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def restore(dev):
+    """[restore]: the storage walkthrough at Qwen2.5-7B (blocks of 32) and
+    at Gemma3-1B (head dim 256, f32 recovery, blocks of 64: 2048 (token,
+    16-byte chunk) pairs a tile), each with its kernel-table rows, then
+    the synthetic shapes."""
+    rows = restore_walk(dev, "qwen2.5-7b", 32, 32, "restore")
+    rows += restore_walk(dev, "gemma3-1b", 64, 64, "restore gemma3-1b",
+                         call="gemma3-1b block 64")
+    restore_shapes(dev)
     return rows
 
 
@@ -2943,6 +3238,8 @@ def main() -> int:
     table += table_rows([prefix(dev, qwen)])
     slo(qwen)
     continuous(qwen)
+    table += table_rows(pages_phase(dev, qwen))
+    page_edges(dev)
     forward_phase(dev, qwen)
     before = torch.cuda.memory_allocated()
     weights = nbytes(*tensors(qwen["params"]))

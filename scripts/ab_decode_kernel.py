@@ -29,7 +29,11 @@ the first decode step of round 2, 545 rows valid of 576):
   qwen_bf16 / _f32    ``ops.flash_decode``, q [8,28,128] over
                       [8,576,4,128] (the ``[dense]`` loop);
   hymba_bf16 / _f32   ``ops.flash_decode``, q [8,25,64] over
-                      [8,576,5,64] (the ``[hybrid]`` path, bf16).
+                      [8,576,5,64] (the ``[hybrid]`` path, bf16);
+  gemma_bf16 / _f32   ``ops.flash_decode``, Gemma3-12B heads (16 over 8,
+                      head dim 256), q [8,16,256] over [8,576,8,256];
+  paged_gemma_bf16 / _f32  ``ops.flash_decode_paged`` at those heads over
+                      18 pages of 32 a sequence (the Gemma3-12B path).
 
     python3 scripts/ab_decode_kernel.py PARENT . . PARENT
 
@@ -112,7 +116,8 @@ g = torch.Generator(device=dev).manual_seed(0)
 B, Sk, L = 8, 576, 545
 kv_len = torch.full((B,), L, device=dev, dtype=torch.int32)
 out = {}
-for name, (H, KV, hd) in {'qwen': (28, 4, 128), 'hymba': (25, 5, 64)}.items():
+for name, (H, KV, hd) in {'qwen': (28, 4, 128), 'hymba': (25, 5, 64),
+                          'gemma': (16, 8, 256)}.items():
     for dt, tag in ((torch.bfloat16, 'bf16'), (torch.float32, 'f32')):
         q = torch.randn(B, H, hd, generator=g, device=dev).to(dt)
         k = torch.randn(B, Sk, KV, hd, generator=g, device=dev).to(dt)
@@ -123,21 +128,22 @@ for name, (H, KV, hd) in {'qwen': (28, 4, 128), 'hymba': (25, 5, 64)}.items():
         out[f'{name}_{tag}_warm'] = timer(dense, cold=False)
         host_parts(f'{name}_{tag}', dense, q, Sk // 32, KV)
         out[f'{name}_{tag}_sdpa'] = timer(sdpa(q, k, v, kv_len))
-        if name != 'qwen':
+        if name == 'hymba':
             continue
+        key = 'paged' if name == 'qwen' else f'paged_{name}'
         nbt, P = Sk // 32, B * Sk // 32 + 16
         pidx = torch.randperm(P, generator=g, device=dev)[: B * nbt].reshape(
             B, nbt).to(torch.int32).contiguous()
         pk = torch.randn(P, 32, KV, hd, generator=g, device=dev).to(dt)
         pv = torch.randn(P, 32, KV, hd, generator=g, device=dev).to(dt)
         paged = lambda: ops.flash_decode_paged(q, pk, pv, pidx, kv_len)
-        out[f'paged_{tag}'] = timer(paged)
-        out[f'paged_{tag}_bits'] = bits(paged())
-        out[f'paged_{tag}_warm'] = timer(paged, cold=False)
-        host_parts(f'paged_{tag}', paged, q, nbt, KV)
+        out[f'{key}_{tag}'] = timer(paged)
+        out[f'{key}_{tag}_bits'] = bits(paged())
+        out[f'{key}_{tag}_warm'] = timer(paged, cold=False)
+        host_parts(f'{key}_{tag}', paged, q, nbt, KV)
         kd = pk[pidx.long()].reshape(B, Sk, KV, hd)
         vd = pv[pidx.long()].reshape(B, Sk, KV, hd)
-        out[f'paged_{tag}_sdpa'] = timer(sdpa(q, kd, vd, kv_len))
+        out[f'{key}_{tag}_sdpa'] = timer(sdpa(q, kd, vd, kv_len))
 one = torch.zeros(1, device=dev)
 out['noop'] = timer(lambda: one.add_(1))      # the timer's floor
 out['card'] = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',

@@ -1,5 +1,5 @@
-"""Time the two store-side kernels, ``block_diff`` and ``rope_align``, of
-several checkouts in turn on one card, and print one JSON line per run
+"""Time the store-side kernels, ``block_diff`` and ``rope_align``, and the
+two restore kernels of several checkouts in turn on one card, and print one JSON line per run
 with the CUDA-event median of 15 calls of every case (L2 evicted before
 each, and the device held ~0.1 ms by a spin so that the host has
 enqueued the call before its start event fires: device time, not the
@@ -25,7 +25,13 @@ Cases, at the shapes the main path (Qwen2.5-7B, 8 agents) gives them:
   rope_align_f32 / _bf16     ``ops.rope_align`` of the shared blocks' keys
                              [28,544,4,128] by one delta row;
   rope_tail_f32 / _bf16      the decode tails' call, [8,28,32,4,128] by
-                             one delta row a request (D = 8).
+                             one delta row a request (D = 8);
+  restore_family_f32 / _bf16 ``fused_family_restore`` at the storage
+                             walkthrough's family [7,28,33,32,4,128]
+                             (Master [28,33,32,4,128], 4 changed blocks a
+                             mirror, aligned frames), ONE launch;
+  restore_mirror_f32 / _bf16 ``fused_diff_restore`` on the same family,
+                             the 7 per-mirror launches summed.
 
     python3 scripts/ab_store_kernels.py PARENT . . PARENT
 
@@ -106,6 +112,37 @@ for dt in (torch.float32, torch.bfloat16):
                         dtype=torch.int32)
     case(f'rope_tail_{tag}', lambda: ops.rope_align(kt, dt8, theta),
          2 * nbytes(kt) + nbytes(dt8))
+# the restore kernels at the walkthrough's family (launches only: the
+# maps are checked and uploaded once, by ops.restore_launcher)
+import numpy as np
+r = np.random.default_rng(0)
+M, nbr, ndb = 7, 33, 4
+slot = np.full((M, nbr), -1, np.int32)
+for m in range(M):
+    slot[m, r.choice(nbr, ndb, replace=False)] = np.arange(ndb)
+pages = r.permutation(M * nbr).reshape(M, nbr).astype(np.int32)
+delta = np.zeros((M, nbr, bt), np.int32)
+for dt in (torch.float32, torch.bfloat16):
+    tag = 'f32' if dt == torch.float32 else 'bf16'
+    mk, mv = (torch.randn(L, nbr, bt, KV, hd, generator=g, device=dev).to(dt)
+              for _ in range(2))
+    dk, dv = (torch.randn(M, L, ndb, bt, KV, hd, generator=g,
+                          device=dev).to(dt) for _ in range(2))
+    pk = torch.zeros(L, M * nbr, bt, KV, hd, device=dev, dtype=dt)
+    pv = torch.zeros_like(pk)
+    fam = ops.restore_launcher('fused_family_restore', mk, mv, dk, dv, slot,
+                               pages, delta, theta, pk, pv)
+    per = [ops.restore_launcher(
+        'fused_diff_restore', mk, mv, dk[m:m + 1], dv[m:m + 1],
+        slot[m:m + 1], pages[m:m + 1], delta[m:m + 1], theta, pk, pv)
+        for m in range(M)]
+    blk = L * bt * KV * hd * mk.element_size()
+    need = int((slot < 0).any(axis=0).sum()) + int((slot >= 0).sum())
+    case(f'restore_family_{tag}', lambda: fam()[0],
+         2 * blk * (need + M * nbr))
+    case(f'restore_mirror_{tag}', lambda: [f() for f in per][-1][0],
+         M * 2 * blk * 2 * nbr)
+    del mk, mv, dk, dv, pk, pv, fam, per
 # the f32 products' rounding, from the kernel's own cos and sin
 k = torch.randn(L, S, KV, hd, generator=g, device=dev)
 d = torch.randint(-600, 600, (S,), generator=g, device=dev, dtype=torch.int32)

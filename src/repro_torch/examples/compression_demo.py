@@ -67,11 +67,12 @@ def group_tokens(vocab_size: int, n_agents: int, *, priv_len: int = 64,
 
 
 def make_group(params: dict, cfg, tokens, priv_len: int, *,
-               ratio: float = 0.1) -> GroupInputs:
+               ratio: float = 0.1, block: int = 32) -> GroupInputs:
     """The JAX ``benchmarks.common.make_group`` on given tokens: cache the
     shared suffix ``tokens[0, priv_len:]`` with one standalone prefill
     and lay it out at its prompt positions. The cached KV is f32 (as the
-    JAX helper and the serving engine assemble it)."""
+    JAX helper and the serving engine assemble it). ``n_sel`` is a whole
+    number of ``block``-token blocks (JAX's helper: 32)."""
     dev = params["embed"].device
     tokens = torch.as_tensor(np.array(tokens), dtype=torch.int64,
                              device=dev)
@@ -87,7 +88,7 @@ def make_group(params: dict, cfg, tokens, priv_len: int, *,
     src[priv_len:] = torch.arange(shared_len, dtype=torch.int32, device=dev)
     mask = torch.zeros(S, dtype=torch.bool, device=dev)
     mask[priv_len:] = True
-    n_sel = n_sel_for_blocks(~mask.cpu().numpy(), 32, ratio)
+    n_sel = n_sel_for_blocks(~mask.cpu().numpy(), block, ratio)
     return GroupInputs(tokens, sk, sv, src, mask, n_sel, S)
 
 
@@ -127,7 +128,8 @@ def walkthrough(params: dict, cfg, tokens, priv_len: int, *,
     — checking bit for bit that dense restore reproduces each mirror's
     recovered KV, that the three pools are equal, and that each mirror's
     pages in the family pool hold its recovered KV."""
-    g = make_group(params, cfg, tokens, priv_len, ratio=ratio)
+    g = make_group(params, cfg, tokens, priv_len, ratio=ratio,
+                   block=block_select)
     N = g.tokens.shape[0]
     ids = [f"agent{i}" for i in range(N)]
     log(f"round: {N} agents, prompt {g.S} tokens "
@@ -143,7 +145,8 @@ def walkthrough(params: dict, cfg, tokens, priv_len: int, *,
     ks = res.pic.recovered_k.transpose(0, 1).contiguous()
     vs = res.pic.recovered_v.transpose(0, 1).contiguous()
     master, handles = build_round_family(ids, ks, vs, np.arange(g.S),
-                                         res.plan.master)
+                                         res.plan.master,
+                                         block_tokens=block_select)
     st = compression_stats(master, handles)
     log(f"diff store: mirror={st['per_mirror_ratio']:.1f}x "
         f"({st['avg_changed_blocks']:.1f}/{st['total_blocks']} blocks), "

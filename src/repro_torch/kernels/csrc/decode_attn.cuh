@@ -69,7 +69,7 @@
 
 namespace decode {
 
-constexpr int kBT = 32;          // KV rows per tile == warp width == page rows
+constexpr int kBT = 32;          // KV rows per tile == warp width
 constexpr int kMaxG = 8;         // query heads per KV head
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;

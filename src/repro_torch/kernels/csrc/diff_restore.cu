@@ -23,6 +23,13 @@
 // 48 KB static limit, no barrier) and gives L * nb * KV blocks (3696 at
 // Qwen2.5-7B's 28 x 33 x 4) for 132 SMs.
 //
+// Any block size and head dim (hd % 16 == 0): a tile of more than 1024
+// (token, chunk) pairs — f32 at bt 64 and hd 256 (Gemma3's recovery at
+// block 64), bt 128 at hd 128, bf16 at bt 128 and hd 256: 2048 — is cut
+// over a third grid axis into parts of 1024 pairs: part z takes pairs
+// z * 1024 .. z * 1024 + 1023 of the tile (pair t * chunks + c), and a
+// tile of at most 1024 pairs is one part of one thread a pair.
+//
 // The family kernel loads the Master tile once and then loops over the M
 // mirrors INSIDE the block: mirror m takes its diff tile where
 // diff_slot[m, b] >= 0 (a fresh load), else the Master tile already in
@@ -107,7 +114,8 @@ __device__ __forceinline__ void rotate(uint4& lo, uint4& hi, int d,
   }
 }
 
-// The shared body. Grid (nb * KV, L); blockDim = bt * (hd/2) / kN.
+// The shared body. Grid (nb * KV, L, parts); pair p = blockIdx.z *
+// blockDim.x + threadIdx.x of the tile's bt * (hd/2) / kN.
 // master [L, nb, bt, KV, hd]; diff [M, L, ndb, bt, KV, hd];
 // diff_slot / slot_map [M, nb]; delta_pos [M, nb, bt]; pools [L, P, bt,
 // KV, hd].
@@ -125,7 +133,9 @@ restore_kernel(const T* __restrict__ mk, const T* __restrict__ mv,
   const int half = hd / 2;
   const int chunks = half / kN;
   const int b = blockIdx.x / KV, kv = blockIdx.x % KV, l = blockIdx.y;
-  const int t = threadIdx.x / chunks, c = threadIdx.x % chunks;
+  const int p = blockIdx.z * blockDim.x + threadIdx.x;
+  if (p >= bt * chunks) return;   // the last part's spare threads
+  const int t = p / chunks, c = p % chunks;
   const long long tile = (long long)bt * KV * hd;       // one (l, b) block
   const long long in_tile = ((long long)t * KV + kv) * hd + c * kN;
 
@@ -159,16 +169,22 @@ int launch(const void* mk, const void* mv, const void* dk, const void* dv,
            const float* inv_freq, void* pk, void* pv, int M, int L, int nb,
            int ndb, int bt, int KV, int hd, int P, int dtype, void* stream) {
   if (M == 0 || L == 0 || nb == 0) return 0;
-  const dim3 grid((unsigned)(nb * KV), (unsigned)L);
+  if (bt < 1 || hd < 16 || hd % 16 != 0) return (int)cudaErrorInvalidValue;
+  // (token, 16-byte chunk) pairs of one tile, in parts of at most 1024
+  const long long pairs =
+      (long long)bt * (hd / 2) /
+      (dtype == kF32 ? Lanes<float>::kN : Lanes<__nv_bfloat16>::kN);
+  const int threads = (int)(pairs < 1024 ? pairs : 1024);
+  const long long parts = (pairs + threads - 1) / threads;
+  if (parts > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(nb * KV), (unsigned)L, (unsigned)parts);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kF32) {
-    const int threads = bt * (hd / 2) / Lanes<float>::kN;
     restore_kernel<float><<<grid, threads, 0, st>>>(
         (const float*)mk, (const float*)mv, (const float*)dk, (const float*)dv,
         diff_slot, slot_map, delta_pos, inv_freq, (float*)pk, (float*)pv, M, L,
         nb, ndb, bt, KV, hd, P);
   } else {
-    const int threads = bt * (hd / 2) / Lanes<__nv_bfloat16>::kN;
     restore_kernel<__nv_bfloat16><<<grid, threads, 0, st>>>(
         (const __nv_bfloat16*)mk, (const __nv_bfloat16*)mv,
         (const __nv_bfloat16*)dk, (const __nv_bfloat16*)dv, diff_slot,

@@ -395,8 +395,9 @@ def decode_split_plan(n_tiles: int, B: int, KV: int, G: int,
     sequence) pair gets S splits of :data:`DECODE_SPLIT_TILES` tiles,
     enough for the longest sequence, and each (pair, split) one f32
     partial of ``G * (hd + 2)`` floats (acc ``[G, hd]``, then the running
-    max and sum per head). Dense: ``n_tiles = ceil(Sk / 32)``; paged:
-    ``nbt + ceil(Tp / 32)``."""
+    max and sum per head). Dense: ``n_tiles = ceil(Sk / 32)``; paged
+    (tiles over positions, at any page size): ``ceil((nbt * bt + Tp) /
+    32)``."""
     S = max(1, -(-n_tiles // DECODE_SPLIT_TILES))
     return S, (B * KV * S, G * (hd + 2))
 
@@ -440,7 +441,10 @@ def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
     c sits at position c, tail row t at ``span_len[b] + t`` and the query
     at ``qpos = span_len[b] + tail_len - 1``: a valid column is allowed
     iff ``qpos - c < window`` (``window`` 0: unbounded); ``softcap`` as
-    in :func:`flash_attention`."""
+    in :func:`flash_attention`. Any page size ``bt >= 1``: the kernel's
+    32-row tiles cover positions, each row read from its page or the
+    tail, so at every page size it gives the dense kernel's bits on the
+    gathered rows. ``span_len[b]`` must not exceed ``nbt * bt``."""
     softcap = _softcap(softcap)
     if _on_cpu("flash_decode_paged", q, pool_k, pool_v, page_idx,
                span_len, tail_k, tail_v):
@@ -456,7 +460,7 @@ def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
     P, bt, KV, _ = pool_k.shape
     if (pool_v.shape != pool_k.shape or pool_k.shape[3] != hd
             or page_idx.shape[0] != B or span_len.shape[0] != B
-            or bt != 32 or H % KV or H // KV > 8
+            or bt < 1 or H % KV or H // KV > 8
             or hd not in HEAD_DIMS or window < 0):
         raise ValueError(f"bad flash_decode_paged args q={tuple(q.shape)} "
                          f"pool={tuple(pool_k.shape)} "
@@ -471,7 +475,8 @@ def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
             raise ValueError(f"bad tail shapes {tuple(tail_k.shape)}")
     out = torch.empty_like(q)
     nbt = page_idx.shape[1]
-    S, part, tickets, stream = _split_operands(q, nbt + -(-Tp // bt), KV)
+    S, part, tickets, stream = _split_operands(q, -(-(nbt * bt + Tp) // 32),
+                                               KV)
     _launch("flash_decode_paged", q.data_ptr(), pool_k.data_ptr(),
             pool_v.data_ptr(), page_idx.data_ptr(), span_len.data_ptr(),
             None if tail_k is None else tail_k.data_ptr(),
@@ -591,11 +596,9 @@ def restore_launcher(kernel: str, master_k, master_v, diff_k, diff_v,
         _check(name, x, dtype=None if name == "master_k" else master_k.dtype)
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    lanes = 16 // master_k.element_size()
-    if hd % 16 or bt * (hd // 2) // lanes > 1024:
-        raise ValueError(f"{kernel} takes hd % 16 == 0 and at most 1024 "
-                         f"(token, 16-byte chunk) pairs a head, got bt {bt} "
-                         f"hd {hd}")
+    if hd % 16:
+        raise ValueError(f"{kernel} loads 16-byte chunks of each half of "
+                         f"the head dim: hd % 16 must be 0, got {hd}")
     dev = master_k.device
     up = [torch.from_numpy(a).to(dev) for a in (slot, pages, delta)]
     freqs = ref.rope_freqs(hd, theta, dev)

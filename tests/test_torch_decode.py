@@ -229,7 +229,10 @@ def test_split_merge_equals_paged_plain_version(tail_len):
     """Pages then a tail: spans at every split edge (page counts odd and
     even, so a tail crosses a split boundary), tails of 0 rows given,
     and rows past the tail's storage zero-filled as the kernel stages
-    them."""
+    them. The kernel's 32-row tiles cover positions: the row at position
+    c < span is its page's slot, the row at c >= span tail row c - span
+    (``tests/test_torch_pages.py`` walks the same tiles at other page
+    sizes)."""
     H, KV, hd, bt, nbt, Tp = 8, 2, 32, 32, 9, 64
     B = len(SPLIT_LENS)
     r = np.random.default_rng(8)
@@ -244,32 +247,24 @@ def test_split_merge_equals_paged_plain_version(tail_len):
     span = torch.tensor(SPLIT_LENS, dtype=torch.int32)
     tails = () if tail_len is None else (tk, tv, tail_len)
     Tpk = 0 if tail_len is None else Tp
-    ntail = 0 if tail_len is None else -(-tail_len // 32)
-    S, _ = ops.decode_split_plan(nbt + -(-Tpk // 32), B, KV, H // KV, hd)
-    # the tiles as the kernel sees them: nbt pages, then the tail padded
-    # with zero rows to whole tiles
-    R = (nbt + -(-Tpk // 32)) * 32
+    S, _ = ops.decode_split_plan(-(-(nbt * bt + Tpk) // 32), B, KV, H // KV,
+                                 hd)
+    # the tiles as the kernel sees them: position c from its page below
+    # the span, then from the tail, zero past both
+    R = -(-(nbt * bt + Tpk) // 32) * 32
     k = torch.zeros(B, R, KV, hd)
     v = torch.zeros(B, R, KV, hd)
     allowed = torch.zeros(B, R, dtype=torch.bool)
     t_end = []
     for b in range(B):
-        k[b, : nbt * bt] = pk[pidx[b].long()].reshape(nbt * bt, KV, hd)
-        v[b, : nbt * bt] = pv[pidx[b].long()].reshape(nbt * bt, KV, hd)
-        npages = min(-(-int(span[b]) // bt), nbt)
-        allowed[b, : int(span[b])] = True
-        if tail_len is not None:
-            k[b, nbt * bt: nbt * bt + Tp] = tk[b]
-            v[b, nbt * bt: nbt * bt + Tp] = tv[b]
-            # tail tile u is tile npages + u of the kernel's walk
-            kt = torch.zeros(R - npages * bt, KV, hd)
-            vt = torch.zeros(R - npages * bt, KV, hd)
-            kt[:Tp], vt[:Tp] = tk[b], tv[b]
-            k[b, npages * bt:] = kt
-            v[b, npages * bt:] = vt
-            allowed[b, npages * bt:] = False
-            allowed[b, npages * bt: npages * bt + tail_len] = True
-        t_end.append(npages + ntail)
+        n = int(span[b])
+        k[b, :n] = pk[pidx[b].long()].reshape(nbt * bt, KV, hd)[:n]
+        v[b, :n] = pv[pidx[b].long()].reshape(nbt * bt, KV, hd)[:n]
+        tl = 0 if tail_len is None else tail_len
+        k[b, n: n + Tpk] = tk[b, :Tpk]
+        v[b, n: n + Tpk] = tv[b, :Tpk]
+        allowed[b, : n + tl] = True
+        t_end.append(-(-(n + tl) // 32))
     got = _split_merge(q, k, v, allowed, [0] * B, t_end, S)
     want = ref.flash_decode_paged_ref(q, pk, pv, pidx, span, *tails)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)

@@ -873,6 +873,62 @@ def test_gpu_flash_decode_paged_window(cuda, dtype, hd, G):
               f"flash_decode_paged ragged window {window} hd {hd} G {G}")
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_DTYPES)
+@pytest.mark.parametrize("bt", [16, 24, 64, 128])
+@pytest.mark.parametrize("hd,G", [(128, 7), (256, 2), (64, 8)])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_gpu_flash_decode_paged_page_sizes(cuda, dtype, bt, hd, G, softcap):
+    """Pages of 16, 24 (no divisor of the kernel's 32-row tile), 64 and
+    128 rows from a shuffled pool: spans whole and ragged (1, 33, 5 pages
+    (4 at 128) cut by 5, every page), tails of 0 and 45 rows, windows none and 100,
+    capped and not. Each call is held to its plain version, gives the
+    same bits twice, and equals the dense decode kernel on the rows
+    gathered in position order bit for bit: its tiles hold the same
+    positions as the dense kernel's at every page size and span."""
+    g = torch.Generator(device=cuda).manual_seed(bt * hd + G)
+    KV, B, Tp = 2, 4, 64
+    nbt = max(576 // bt, 2)
+    H, P = G * KV, B * nbt + 5
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+
+    q, pk, pv = rnd(B, H, hd), rnd(P, bt, KV, hd), rnd(P, bt, KV, hd)
+    tk, tv = rnd(B, Tp, KV, hd), rnd(B, Tp, KV, hd)
+    pidx = torch.randperm(P, generator=g, device=cuda)[: B * nbt].reshape(
+        B, nbt).to(torch.int32).contiguous()
+    span = torch.tensor([1, 33, min(5, nbt) * bt - 5, nbt * bt],
+                        device=cuda, dtype=torch.int32)
+    R = nbt * bt + Tp
+    for tail_len in (0, 45):
+        kd = torch.zeros(B, R, KV, hd, device=cuda, dtype=dtype)
+        vd = torch.zeros_like(kd)
+        for b in range(B):
+            n = int(span[b])
+            kd[b, :n] = pk[pidx[b].long()].reshape(-1, KV, hd)[:n]
+            vd[b, :n] = pv[pidx[b].long()].reshape(-1, KV, hd)[:n]
+            kd[b, n:n + tail_len] = tk[b, :tail_len]
+            vd[b, n:n + tail_len] = tv[b, :tail_len]
+        kl = (span + tail_len).to(torch.int32)
+        for window in (0, 100):
+            args = (q, pk, pv, pidx, span, tk, tv, tail_len)
+            ops.reset_launches()
+            got = ops.flash_decode_paged(*args, window=window,
+                                         softcap=softcap)
+            assert ops.LAUNCHES["flash_decode_paged"] == 1
+            assert torch.equal(ops.flash_decode_paged(
+                *args, window=window, softcap=softcap), got), \
+                (tail_len, window, "two calls differ")
+            _held(got, ref.flash_decode_paged_ref(*args, window=window,
+                                                  softcap=softcap),
+                  dtype, f"flash_decode_paged bt {bt} hd {hd} G {G} tail "
+                  f"{tail_len} window {window} softcap {softcap}")
+            assert torch.equal(got, ops.flash_decode(
+                q, kd, vd, kl, window or R, softcap=softcap)), \
+                (tail_len, window, "paged != dense")
+
+
 RESTORE_CASES = {          # mirror diff counts, padded diff rows, shifted
     "single_mirror": ([4], 0, False),
     "zero_diffs": ([0, 0, 0], 0, False),
@@ -908,11 +964,19 @@ def _restore_inputs(cuda, dtype, counts, pad, shifted, L, nb, bt, KV, hd):
 @pytest.mark.parametrize("dtype", GPU_DTYPES)
 @pytest.mark.parametrize("case", sorted(RESTORE_CASES))
 @pytest.mark.parametrize("L,nb,bt,KV,hd", [(3, 9, 32, 4, 128),
-                                           (2, 9, 16, 2, 64)])
+                                           (2, 9, 16, 2, 64),
+                                           (2, 9, 64, 1, 256),
+                                           (2, 9, 128, 2, 128),
+                                           (2, 9, 128, 1, 256),
+                                           (2, 9, 32, 8, 256)])
 def test_gpu_restore_kernels(cuda, dtype, case, L, nb, bt, KV, hd):
     """Both restore kernels against their plain versions, each into a
     fresh pool: bit for bit in aligned frames (pure data movement), the
-    bf16/f32 tolerance in shifted ones; pages no map names stay zero."""
+    bf16/f32 tolerance in shifted ones; pages no map names stay zero.
+    Tiles of more than 1024 (token, 16-byte chunk) pairs, which the
+    kernel cuts into parts: bt 64 at hd 256 and bt 128 at hd 128 in f32
+    (2048), bt 128 at hd 256 (2048 in bf16, 4096 in f32); Gemma3-12B's
+    heads at bt 32 (KV 8, hd 256)."""
     counts, pad, shifted = RESTORE_CASES[case]
     mk, mv, dk, dv, slot, pages, delta, P = _restore_inputs(
         cuda, dtype, counts, pad, shifted, L, nb, bt, KV, hd)
