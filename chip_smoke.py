@@ -80,6 +80,23 @@ Phases (each prints its lines; any failure exits non-zero):
      window, capped at 30 and with a tail; each held to its plain
      version, twice bit-equal and bit-equal to the dense decode kernel
      on the gathered rows; timed beside SDPA and its bound;
+  8c. [heads] the kernels at the attention shapes of one layer of six
+     public models at their published head widths (8 sequences, a span
+     of 545, pages of 32): the decode pair at Mistral-Large-2's G 12 (96
+     over 8), Llama-3.1-405B's G 16 (128 over 8), Qwen3-235B-A22B's G 16
+     (64 over 4) and Falcon-180B's G 29 (232 over 8, head dim 64), and at
+     Phi-2's head dim 80 and Phi-3-mini's 96 (32 over 32) the decode pair,
+     the prefill pair (dense and paged), ``rope_align``, ``block_diff``
+     and both restores; bf16 and f32, windowed, capped and tailed where
+     the kernel takes it; each call against its plain version and twice
+     bit-equal, paged == dense bit for bit, timed beside its bound and
+     SDPA where SDPA computes the same function;
+  8d. [heads serve] ``ServingEngine(params, cfg)`` with its defaults on
+     the main path's trace at the smoke Qwen2.5-7B config with its heads
+     replaced (16 over 1 at head dim 96; 8 over 2 at head dim 80; weights
+     random from seed 0): counts zeroed before and read after, every
+     main-path kernel launched and no plain version; each again with
+     ``paged_decode=False``, bit-equal;
   9. [forward] ``transformer.forward`` on the main path's weights over
      tokens [8, 544] from a seeded generator: 28 ``flash_prefill``
      launches and no plain version, logits bit-equal to
@@ -1491,6 +1508,330 @@ def page_edges(dev):
                 del q, pk, pv, tk, tv, gk, gv
     torch.cuda.empty_cache()
     say(f"[page edges] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------- head layouts
+#: public head layouts past the first kernels' limits: (model, query
+#: heads, KV heads, head dim), one layer each at its published widths
+HEAD_LAYOUTS = (
+    ("Mistral-Large-2", 96, 8, 128),         # G 12
+    ("Llama-3.1-405B", 128, 8, 128),         # G 16 over 8
+    ("Qwen3-235B-A22B", 64, 4, 128),         # G 16 over 4
+    ("Falcon-180B", 232, 8, 64),             # G 29
+    ("Phi-2", 32, 32, 80),                   # head dim 80
+    ("Phi-3-mini", 32, 32, 96),              # head dim 96
+)
+
+
+def heads_decode(dev, timer, g, model, H, KV, hd):
+    """The decode pair at one layout: 8 sequences over 576 positions in
+    shuffled pages of 32, a span of 545 (the main path's), in bf16 and
+    f32: as it is, with a binding window of 100, capped at 30 and with a
+    tail of 45 rows. Each call against its plain version and twice
+    bit-equal, and the dense kernel on the rows gathered in position order
+    bit-equal to the paged one (and held to its own plain version). The
+    plain calls timed beside their plain versions, SDPA and their bound."""
+    from repro_torch.kernels import ops, ref
+
+    B, R, Tp, span_len, bt = 8, 576, 64, 545, 32
+    nbt = R // bt
+    P = B * nbt + 7
+    for dt in (torch.bfloat16, torch.float32):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+        q, pk, pv = rnd(B, H, hd), rnd(P, bt, KV, hd), rnd(P, bt, KV, hd)
+        tk, tv = rnd(B, Tp, KV, hd), rnd(B, Tp, KV, hd)
+        pidx = torch.randperm(P, generator=g, device=dev)[: B * nbt].reshape(
+            B, nbt).to(torch.int32).contiguous()
+        span = torch.full((B,), span_len, device=dev, dtype=torch.int32)
+        gk = pk[pidx.long()].reshape(B, R, KV, hd)
+        gv = pv[pidx.long()].reshape(B, R, KV, hd)
+        errs = []
+        for case, tail, kw in (("plain", (), {}),
+                               ("window 100", (), dict(window=100)),
+                               ("softcap 30", (), dict(softcap=30.0)),
+                               ("tail 45", (tk, tv, 45), {})):
+            got = ops.flash_decode_paged(q, pk, pv, pidx, span, *tail, **kw)
+            errs.append(check("flash_decode_paged", got,
+                              ref.flash_decode_paged_ref(
+                                  q, pk, pv, pidx, span, *tail, **kw), dt))
+            assert torch.equal(ops.flash_decode_paged(
+                q, pk, pv, pidx, span, *tail, **kw), got), \
+                (model, dt, case, "two calls differ")
+            tl = tail[2] if tail else 0
+            kd = torch.zeros(B, R + Tp, KV, hd, device=dev, dtype=dt)
+            vd = torch.zeros_like(kd)
+            kd[:, :span_len], vd[:, :span_len] = \
+                gk[:, :span_len], gv[:, :span_len]
+            if tl:
+                kd[:, span_len:span_len + tl] = tk[:, :tl]
+                vd[:, span_len:span_len + tl] = tv[:, :tl]
+            kl = (span + tl).to(torch.int32)
+            dargs = (q, kd, vd, kl, kw.get("window", R + Tp))
+            dense = ops.flash_decode(*dargs, softcap=kw.get("softcap", 0.0))
+            errs.append(check("flash_decode", dense, ref.flash_decode_ref(
+                *dargs, softcap=kw.get("softcap", 0.0)), dt))
+            assert torch.equal(dense, got), (model, dt, case,
+                                             "paged != dense")
+            assert torch.equal(ops.flash_decode(
+                *dargs, softcap=kw.get("softcap", 0.0)), dense), \
+                (model, dt, case, "two dense calls differ")
+            del kd, vd
+        tp = decode_row_times(timer, q, pk, pv, pidx, span)
+        gk_, gv_ = gk.contiguous(), gv.contiguous()
+        mask = torch.arange(R, device=dev)[None] < span[:, None]
+        cols = int(span.long().sum().item())
+        td = decode_times(
+            timer, lambda: ops.flash_decode(q, gk_, gv_, span, R),
+            lambda: ref.flash_decode_ref(q, gk_, gv_, span, R),
+            sdpa_decode(q, gk_, gv_, mask),
+            nbytes(q, span) + nbytes(q)
+            + 2 * cols * KV * hd * q.element_size(), 4 * hd * H * cols, dt)
+        say(f"[heads] {model} ({H} over {KV}, G {H // KV}, hd {hd}), {dt}: "
+            f"flash_decode_paged over {nbt} pages of {bt}, span {span_len}: "
+            f"{times_line(tp)}; flash_decode on the gathered rows: "
+            f"{times_line(td)}; plain / window / softcap / tail max abs err "
+            f"paged {' / '.join(f'{e:.3g}' for e in errs[0::2])}, dense "
+            f"{' / '.join(f'{e:.3g}' for e in errs[1::2])}; twice and paged "
+            f"== dense bit-equal")
+        del q, pk, pv, tk, tv, gk, gv, gk_, gv_
+
+
+def heads_prefill(dev, timer, g, model, H, KV, hd):
+    """The prefill pair at one layout, in bf16 and f32: ``flash_attention``
+    over 8 sequences of 544 (the recovery's fresh call) causal, with a
+    binding window of 100 and a ragged kv_len, and capped at 30; and
+    ``flash_prefill_paged`` over 7 pages of 32 and a 32-row tail (q [8,
+    256]: the main path's round-2 pool) as it is, windowed and capped, each
+    bit-equal to the dense kernel on the gathered rows. Each call against
+    its plain version and twice bit-equal; the causal calls timed beside
+    their plain versions, SDPA and their bound."""
+    from repro_torch.kernels import ops, ref
+
+    B, S = 8, 544
+    nbh, bt, T = 7, 32, 32
+    span = nbh * bt
+    P = B * nbh + 3
+    W = 2 ** 31 - 1
+    for dt in (torch.bfloat16, torch.float32):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+        def twice(fn, what):
+            got = fn()
+            assert torch.equal(fn(), got), (model, dt, what,
+                                            "two calls differ")
+            return got
+
+        q, k, v = rnd(B, S, H, hd), rnd(B, S, KV, hd), rnd(B, S, KV, hd)
+        pos = torch.arange(S, device=dev, dtype=torch.int32).expand(
+            B, S).contiguous()
+        # every row keeps an allowed column under the window (a row with
+        # none is undefined: each version averages what it visits)
+        kl = torch.tensor([S, 500, 460, S, 445, S, 520, 480], device=dev,
+                          dtype=torch.int32)
+        errs = []
+        for case, kw in (("causal", dict(window=S)),
+                         ("window 100", dict(window=100, kv_len=kl)),
+                         ("softcap 30", dict(window=S, softcap=30.0))):
+            got = twice(lambda: ops.flash_attention(q, k, v, q_pos=pos, **kw),
+                        f"flash_prefill {case}")
+            errs.append(check("flash_prefill", got, ref.flash_attention_ref(
+                q, k, v, q_pos=pos, **kw), dt))
+        tf = prefill_times(timer, q, k, v, pos, S)
+
+        qp = rnd(B, span + T, H, hd)
+        pk, pv = rnd(P, bt, KV, hd), rnd(P, bt, KV, hd)
+        tk, tv = rnd(B, T, KV, hd), rnd(B, T, KV, hd)
+        pidx = torch.randperm(P, generator=g, device=dev)[: B * nbh].reshape(
+            B, nbh).to(torch.int32).contiguous()
+        kd = torch.cat([pk[pidx.long()].reshape(B, span, KV, hd), tk], 1)
+        vd = torch.cat([pv[pidx.long()].reshape(B, span, KV, hd), tv], 1)
+        ppos = torch.arange(span + T, device=dev, dtype=torch.int32).expand(
+            B, span + T).contiguous()
+        perrs = []
+        for case, kw in (("causal", {}), ("window 100", dict(window=100)),
+                         ("softcap 30", dict(softcap=30.0))):
+            got = twice(lambda: ops.flash_prefill_paged(
+                qp, pk, pv, pidx, tk, tv, span_len=span, **kw),
+                f"flash_prefill_paged {case}")
+            perrs.append(check("flash_prefill_paged", got,
+                               ref.flash_attention_paged_ref(
+                                   qp, pk, pv, pidx, tk, tv, span_len=span,
+                                   **kw), dt))
+            assert torch.equal(got, ops.flash_attention(
+                qp, kd, vd, q_pos=ppos, window=kw.get("window") or W,
+                softcap=kw.get("softcap", 0.0))), (model, dt, case,
+                                                   "paged != dense")
+        flops = 4 * hd * H * allowed_cols(ppos, W, span + T)
+        n_bytes = (nbytes(qp, pidx, tk, tv) + nbytes(qp)
+                   + 2 * B * span * KV * hd * qp.element_size())
+        bms, by = bound(n_bytes, flops, dt, split_tf32=True)
+        qt, kt, vt = (x.transpose(1, 2) for x in (qp, kd, vd))
+        tp = dict(
+            ms=timer(lambda: ops.flash_prefill_paged(
+                qp, pk, pv, pidx, tk, tv, span_len=span)),
+            plain_ms=timer(lambda: ref.flash_attention_paged_ref(
+                qp, pk, pv, pidx, tk, tv, span_len=span)),
+            library_ms=timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            bound_ms=bms, bound_by=by,
+            bound_cuda_core_ms=bound(n_bytes, flops, dt)[0])
+        say(f"[heads] {model} ({H} over {KV}, hd {hd}), {dt}: flash_prefill "
+            f"q {list(q.shape)} causal: {times_line(tf)}; causal / window / "
+            f"softcap max abs err {' / '.join(f'{e:.3g}' for e in errs)}; "
+            f"flash_prefill_paged q {list(qp.shape)} over {nbh} pages of "
+            f"{bt} + {T} tail rows: {times_line(tp)}; causal / window / "
+            f"softcap max abs err {' / '.join(f'{e:.3g}' for e in perrs)}, "
+            f"each bit-equal to the dense kernel on the gathered rows; "
+            f"every call twice bit-equal")
+        del q, k, v, qp, pk, pv, tk, tv, kd, vd, qt, kt, vt
+
+
+def heads_store(dev, timer, g, model, KV, hd):
+    """``rope_align``, ``block_diff`` and the two restore kernels at one
+    layer of a layout, in bf16 and f32: ``rope_align`` at the shared
+    blocks' call (k [1, 544, KV, hd] by one delta row) and the decode
+    tails' (k [8, 1, 32, KV, hd], one delta row a request); ``block_diff``
+    over a family 2 x [8, 1, 544, KV, hd] in blocks of 32; the restores on
+    a family of 7 mirrors over 17 blocks of 32 (``hold_restores``: exact in
+    aligned frames). Each against its plain version and twice bit-equal,
+    timed beside its plain version and bound (no library call computes
+    these functions)."""
+    from repro_torch.kernels import ops, ref
+
+    theta = 1e4
+    for dt in (torch.bfloat16, torch.float32):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+        parts = []
+        for call, k, delta in (
+                ("shared", rnd(1, 544, KV, hd),
+                 torch.randint(-900, 900, (544,), generator=g, device=dev,
+                               dtype=torch.int32)),
+                ("per-request", rnd(8, 1, 32, KV, hd),
+                 torch.randint(-900, 900, (8, 32), generator=g, device=dev,
+                               dtype=torch.int32))):
+            got = ops.rope_align(k, delta, theta)
+            err = check("rope_align", got,
+                        ref.rope_delta_ref(k, delta, theta), dt)
+            assert torch.equal(got, ops.rope_align(k, delta, theta)), \
+                (model, dt, call)
+            t = store_times(
+                timer, lambda k=k, d=delta: ops.rope_align(k, d, theta),
+                lambda k=k, d=delta: ref.rope_delta_ref(k, d, theta),
+                2 * nbytes(k) + nbytes(delta), 7 * k.numel() // 2, dt)
+            parts.append(f"rope_align {call} k {list(k.shape)}: "
+                         f"{store_line(t)}, max abs err {err:.3g}")
+        ks, vs = rnd(8, 1, 544, KV, hd), rnd(8, 1, 544, KV, hd)
+        ks[1, :, :64], vs[1, :, :64] = ks[4, :, :64], vs[4, :, :64]
+        got = ops.block_diff(ks, vs, 4, 32)
+        check("block_diff", got, ref.block_diff_ref(ks, vs, 4, 32), dt)
+        assert torch.equal(got, ops.block_diff(ks, vs, 4, 32)), (model, dt)
+        assert (got[4] == 0).all() and (got[1, :2] == 0).all(), got
+        t = store_times(timer, lambda: ops.block_diff(ks, vs, 4, 32),
+                        lambda: ref.block_diff_ref(ks, vs, 4, 32),
+                        nbytes(ks, vs) + 4 * 8 * 17,
+                        3 * (ks.numel() + vs.numel()), dt)
+        parts.append(f"block_diff 2 x {list(ks.shape)}: {store_line(t)}, "
+                     f"exact")
+        say(f"[heads] {model} (KV {KV}, hd {hd}), {dt}: "
+            + "; ".join(parts) + "; every call twice bit-equal")
+        del ks, vs
+    r = np.random.default_rng(hd)
+    M, L, S, bt = 7, 1, 544, 32
+    nb = S // bt
+    ndb = nb // 3
+    mk, mv = (torch.randn(L, S, KV, hd, generator=g, device=dev)
+              for _ in range(2))
+    dk, dv = (torch.randn(M, L, ndb, bt, KV, hd, generator=g, device=dev)
+              for _ in range(2))
+    slot = np.full((M, nb), -1, np.int32)
+    for m in range(M):
+        slot[m, r.choice(nb, ndb, replace=False)] = np.arange(ndb)
+    maps = r.permutation(M * nb).reshape(M, nb).astype(np.int32)
+    packs = {"aligned": (dk, dv, slot, np.zeros((M, nb, bt), np.int32)),
+             "shifted": (dk, dv, slot, r.integers(1, 2000, (M, nb, bt)
+                                                  ).astype(np.int32))}
+    hold_restores("heads", dev, timer, mk, mv, packs, maps, theta,
+                  (torch.float32, torch.bfloat16),
+                  what=f"{model} (KV {KV}, hd {hd}) restores, M {M}, {L} "
+                       f"layer, nb {nb}, ")
+
+
+def heads_phase(dev):
+    """[heads]: the kernels at the attention shapes of one layer of each
+    public layout in ``HEAD_LAYOUTS`` (8 sequences, a span of 545): the
+    decode pair at every layout (G 12, 16 over 8 and over 4, 29; head dims
+    80 and 96), and at head dims 80 and 96 also the prefill pair,
+    ``rope_align``, ``block_diff`` and both restores. Lines, not kernel-
+    table rows: no served path makes these calls at these widths."""
+    t_phase = time.perf_counter()
+    timer = Timer(dev)
+    g = torch.Generator(device=dev).manual_seed(28)
+    for model, H, KV, hd in HEAD_LAYOUTS:
+        heads_decode(dev, timer, g, model, H, KV, hd)
+        if hd in (80, 96):
+            heads_prefill(dev, timer, g, model, H, KV, hd)
+            heads_store(dev, timer, g, model, KV, hd)
+        torch.cuda.empty_cache()
+    say(f"[heads] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+#: [heads serve]: the smoke Qwen2.5-7B with its heads replaced
+HEADS_SERVE = (dict(n_heads=16, n_kv_heads=1, head_dim=96),
+               dict(n_heads=8, n_kv_heads=2, head_dim=80))
+
+
+def heads_serve(dev):
+    """[heads serve]: ``ServingEngine(params, cfg)`` with its defaults
+    (TokenDance, paged decode, incremental restore) on the 8-agent
+    ``agent_society`` trace for 3 rounds (the main path's), at the smoke
+    Qwen2.5-7B config with its heads replaced by ``HEADS_SERVE`` (G 16 at
+    head dim 96; G 4 at head dim 80; weights random from seed 0): no
+    registered config has these layouts. Counts zeroed before and read
+    after: every main-path kernel launched, no plain version. Each again
+    with ``paged_decode=False``: outputs, first-token logits and
+    persistent bytes bit-equal, ``flash_decode`` launched instead."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.rounds import generate_trace
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+
+    t_phase = time.perf_counter()
+    for heads in HEADS_SERVE:
+        cfg = get_smoke_config("qwen2.5-7b").replace(**heads)
+        hd, G = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+        tag = f"heads serve G {G} hd {hd}"
+        say(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+            f"heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim {hd}, "
+            f"{cfg.dtype}")
+        params = init_params(cfg, 0, device=dev)
+        trace = generate_trace("agent_society", 8, 3, cfg.vocab_size,
+                               seed=0, jitter_hist=False)
+        engine = ServingEngine(params, cfg, keep_logits=True)
+        stats, launches, _ = serve_phase(tag, engine, trace, ops)
+        del engine
+        missing = [k for k in ("rope_align", "block_diff", "flash_prefill",
+                               "flash_decode_paged") if launches[k] == 0]
+        assert not missing, f"kernels never launched at {tag}: {missing}"
+        for st in stats:
+            assert st.outputs.shape == (8, 32), st.outputs.shape
+            assert ((st.outputs >= 0) & (st.outputs < cfg.vocab_size)).all()
+            assert np.isfinite(st.first_logits).all(), (tag, st.round_idx)
+        assert stats[2].reuse["restore"]["incremental"], stats[2].reuse
+        engine = ServingEngine(params, cfg, paged_decode=False,
+                               keep_logits=True)
+        dense, dl, _ = serve_phase(f"{tag} dense", engine, trace, ops)
+        del engine
+        bit_equal(f"{tag} dense", stats, dense, "the paged loop's")
+        assert dl["flash_decode"] > 0 and dl["flash_decode_paged"] == 0, dl
+        del params
+    torch.cuda.empty_cache()
+    say(f"[heads serve] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 # ------------------------------------------- the Qwen and Gemma3 families
@@ -3240,6 +3581,8 @@ def main() -> int:
     continuous(qwen)
     table += table_rows(pages_phase(dev, qwen))
     page_edges(dev)
+    heads_phase(dev)
+    heads_serve(dev)
     forward_phase(dev, qwen)
     before = torch.cuda.memory_allocated()
     weights = nbytes(*tensors(qwen["params"]))

@@ -33,7 +33,11 @@ the first decode step of round 2, 545 rows valid of 576):
   gemma_bf16 / _f32   ``ops.flash_decode``, Gemma3-12B heads (16 over 8,
                       head dim 256), q [8,16,256] over [8,576,8,256];
   paged_gemma_bf16 / _f32  ``ops.flash_decode_paged`` at those heads over
-                      18 pages of 32 a sequence (the Gemma3-12B path).
+                      18 pages of 32 a sequence (the Gemma3-12B path);
+  smoke_bf16 / _f32, paged_smoke_bf16 / _f32  the two kernels at the
+                      smoke Qwen2.5-7B's heads (8 over 2, head dim 32: the
+                      CPU parity tests' layout), q [8,8,32] over
+                      [8,576,2,32] and over 18 pages of 32.
 
     python3 scripts/ab_decode_kernel.py PARENT . . PARENT
 
@@ -117,7 +121,8 @@ B, Sk, L = 8, 576, 545
 kv_len = torch.full((B,), L, device=dev, dtype=torch.int32)
 out = {}
 for name, (H, KV, hd) in {'qwen': (28, 4, 128), 'hymba': (25, 5, 64),
-                          'gemma': (16, 8, 256)}.items():
+                          'gemma': (16, 8, 256),
+                          'smoke': (8, 2, 32)}.items():
     for dt, tag in ((torch.bfloat16, 'bf16'), (torch.float32, 'f32')):
         q = torch.randn(B, H, hd, generator=g, device=dev).to(dt)
         k = torch.randn(B, Sk, KV, hd, generator=g, device=dev).to(dt)

@@ -19,8 +19,9 @@
 // Design: the grid is (KV head, sequence, split): one block of 256 threads
 // per split of decode::kSplitTiles 32-row tiles of a (KV head, sequence)
 // pair covers the G query heads of that KV head (G = 5 for Hymba-1.5B, 7
-// for Qwen2.5-7B), so the card has KV x B x S blocks to spread the cache
-// over (Hymba at Sk 576: 360) and each row is read once per group. Tiles
+// for Qwen2.5-7B; past 8, as Llama-3.1-405B's 16, in chunks of 8 over the
+// same staged tiles), so the card has KV x B x S blocks to spread the
+// cache over (Hymba at Sk 576: 360) and each row is read once per group. Tiles
 // run through decode::attend (decode_attn.cuh): a cp.async ring, the tile
 // arithmetic, and the fixed-order combine of the splits, shared with the
 // paged decode kernel, so paged == dense holds bit for bit whenever the
@@ -32,7 +33,6 @@
 #include "decode_attn.cuh"
 
 using decode::kBT;
-using decode::kMaxG;
 using decode::kThreads;
 using decode::n_splits;
 
@@ -63,6 +63,23 @@ struct DenseRows {
 
 }  // namespace
 
+template <typename T, int HD, bool kCap, bool kWide>
+__device__ __forceinline__ void decode_block(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const int* __restrict__ kv_len, T* __restrict__ out,
+    float* __restrict__ part, int* __restrict__ tickets, int H, int KV,
+    int Sk, int window, float scale, float softcap) {
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int len = max(min(kv_len[b], Sk), 0);
+  const long long base = (long long)b * Sk * KV * HD;
+  const DenseRows<T, HD> rows{k + base, v + base, KV, kvh, Sk, len, window};
+  // first allowed row: kv_len - window (window >= 1)
+  const long long lo = max((long long)len - window, 0LL);
+  decode::attend<T, HD, kCap, kWide>(q, out, b, kvh, H, KV, scale, softcap,
+                                     (int)(lo / kBT), (len + kBT - 1) / kBT,
+                                     rows, part, tickets);
+}
+
 template <typename T, int HD, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -70,33 +87,65 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     T* __restrict__ out, float* __restrict__ part,
                     int* __restrict__ tickets, int H, int KV, int Sk,
                     int window, float scale, float softcap) {
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int len = max(min(kv_len[b], Sk), 0);
-  const long long base = (long long)b * Sk * KV * HD;
-  const DenseRows<T, HD> rows{k + base, v + base, KV, kvh, Sk, len, window};
-  // first allowed row: kv_len - window (window >= 1)
-  const long long lo = max((long long)len - window, 0LL);
-  decode::attend<T, HD, kCap>(q, out, b, kvh, H, KV, scale, softcap,
-                              (int)(lo / kBT), (len + kBT - 1) / kBT, rows,
-                              part, tickets);
+  decode_block<T, HD, kCap, false>(q, k, v, kv_len, out, part, tickets, H,
+                                   KV, Sk, window, scale, softcap);
 }
 
+// More than 8 query heads a KV head (decode::attend's kWide): one block an
+// SM declared, as the paged kernel declares it, so that ptxas may give the
+// head chunks' loop the registers it needs (held to 64 a thread, the f32
+// hd-64 and hd-80 and bf16 hd-80 instances spilled 4-12 bytes).
+template <typename T, int HD, bool kCap>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_decode_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v,
+                         const int* __restrict__ kv_len, T* __restrict__ out,
+                         float* __restrict__ part, int* __restrict__ tickets,
+                         int H, int KV, int Sk, int window, float scale,
+                         float softcap) {
+  decode_block<T, HD, kCap, true>(q, k, v, kv_len, out, part, tickets, H,
+                                  KV, Sk, window, scale, softcap);
+}
+
+template <typename T, int HD, bool kCap, bool kWide>
+auto kernel_of() {
+  if constexpr (kWide)
+    return flash_decode_wide_kernel<T, HD, kCap>;
+  else
+    return flash_decode_kernel<T, HD, kCap>;
+}
+
+template <typename T, int HD, bool kCap, bool kWide>
+static int launch_g(dim3 grid, const T* q, const T* k, const T* v,
+                    const int* kv_len, T* out, float* part, int* tickets,
+                    int H, int KV, int Sk, int window, float scale,
+                    float softcap, cudaStream_t st) {
+  constexpr int smem = decode::smem_bytes<T, HD, kWide>();
+  const auto kernel = kernel_of<T, HD, kCap, kWide>();
+  if (smem + decode::static_smem_bytes<HD>() > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, kThreads, smem, st>>>(q, k, v, kv_len, out, part, tickets,
+                                       H, KV, Sk, window, scale, softcap);
+  return (int)cudaGetLastError();
+}
+
+// up to 8 heads a KV head run the instance of one chunk, more the
+// chunked one
 template <typename T, int HD, bool kCap>
 static int launch_hd(dim3 grid, const T* q, const T* k, const T* v,
                      const int* kv_len, T* out, float* part, int* tickets,
                      int H, int KV, int Sk, int window, float scale,
                      float softcap, cudaStream_t st) {
-  constexpr int smem = decode::smem_bytes<T, HD>();
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_kernel<T, HD, kCap>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  flash_decode_kernel<T, HD, kCap><<<grid, kThreads, smem, st>>>(
-      q, k, v, kv_len, out, part, tickets, H, KV, Sk, window, scale,
-      softcap);
-  return (int)cudaGetLastError();
+  if (H / KV > decode::kMaxG)
+    return launch_g<T, HD, kCap, true>(grid, q, k, v, kv_len, out, part,
+                                       tickets, H, KV, Sk, window, scale,
+                                       softcap, st);
+  return launch_g<T, HD, kCap, false>(grid, q, k, v, kv_len, out, part,
+                                      tickets, H, KV, Sk, window, scale,
+                                      softcap, st);
 }
 
 template <typename T>
@@ -122,6 +171,8 @@ static int launch_typed(const void* q, const void* k, const void* v,
                                         softcap, st);
     DENSE_CASE(32)
     DENSE_CASE(64)
+    DENSE_CASE(80)
+    DENSE_CASE(96)
     DENSE_CASE(128)
     DENSE_CASE(256)
 #undef DENSE_CASE
@@ -130,7 +181,7 @@ static int launch_typed(const void* q, const void* k, const void* v,
   }
 }
 
-// H / KV must be at most 8 and window at least 1. S splits a pair must
+// H a multiple of KV (any G = H / KV) and window at least 1. S splits a pair must
 // cover ceil(Sk / 32) tiles; part holds B * KV * S partials of
 // (H / KV) * (hd + 2) floats; tickets holds B * KV zeros.
 extern "C" int flash_decode_launch(const void* q, const void* k,
@@ -139,7 +190,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                                    int B, int H, int KV, int hd, int Sk,
                                    int S, int window, float scale,
                                    float softcap, int dtype, void* stream) {
-  if (H % KV != 0 || H / KV > kMaxG || window < 1 || !(softcap >= 0.f) ||
+  if (H % KV != 0 || window < 1 || !(softcap >= 0.f) ||
       S < n_splits((Sk + kBT - 1) / kBT))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;

@@ -20,8 +20,9 @@
 // Design: the grid is (KV head, sequence, split): one block of 256 threads
 // per split of decode::kSplitTiles tiles of a (KV head, sequence) pair
 // covers the G query heads that share that KV head (G = 7 for
-// Qwen2.5-7B), so each row is read from device memory once per group,
-// not once per query head, and the card has KV x B x S blocks (Qwen at 18
+// Qwen2.5-7B; past 8 in chunks of 8 over the same staged tiles), so each
+// row is read from device memory once per group, not once per query
+// head, and the card has KV x B x S blocks (Qwen at 18
 // pages: 288) instead of KV x B (32). Tiles run through decode::attend
 // (decode_attn.cuh): a cp.async ring, the tile arithmetic and the
 // fixed-order combine of the splits, which the dense decode kernel
@@ -45,7 +46,6 @@
 #include "decode_attn.cuh"
 
 using decode::kBT;
-using decode::kMaxG;
 using decode::kThreads;
 using decode::n_splits;
 
@@ -118,7 +118,7 @@ struct PagedRows {
 // spilled. With it (and PageDiv's multiply for c / bt) no instance spills,
 // and the times at 32-row pages are those of the kernel that took only
 // 32-row pages (PERF.md §6, row 4).
-template <typename T, int HD, bool kCap>
+template <typename T, int HD, bool kCap, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ pk,
                           const T* __restrict__ pv, const int* __restrict__ page_idx,
@@ -144,11 +144,34 @@ flash_decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ pk,
   // lo = qpos - window + 1 (window >= 1), as in the dense kernel
   const long long lo = max((long long)qpos - window + 1, 0LL);
   const int t_end = (qpos + kBT) / kBT;
-  decode::attend<T, HD, kCap>(q, out, b, kvh, H, KV, scale, softcap,
-                              min((int)(lo / kBT), t_end), t_end, rows, part,
-                              tickets);
+  decode::attend<T, HD, kCap, kWide>(q, out, b, kvh, H, KV, scale, softcap,
+                                     min((int)(lo / kBT), t_end), t_end, rows,
+                                     part, tickets);
 }
 
+template <typename T, int HD, bool kCap, bool kWide>
+static int launch_g(dim3 grid, const T* q, const T* pk, const T* pv,
+                    const int* page_idx, const int* span_len, const T* tk,
+                    const T* tv, T* out, float* part, int* tickets, int H,
+                    int KV, PageDiv div, int nbt, int Tp, int tail_len,
+                    int window, float scale, float softcap,
+                    cudaStream_t st) {
+  constexpr int smem = decode::smem_bytes<T, HD, kWide>();
+  if (smem + decode::static_smem_bytes<HD>() > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_decode_paged_kernel<T, HD, kCap, kWide>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  flash_decode_paged_kernel<T, HD, kCap, kWide>
+      <<<grid, kThreads, smem, st>>>(q, pk, pv, page_idx, span_len, tk, tv,
+                                     out, part, tickets, H, KV, div, nbt, Tp,
+                                     tail_len, window, scale, softcap);
+  return (int)cudaGetLastError();
+}
+
+// up to 8 heads a KV head run the instance of one chunk, more the
+// chunked one
 template <typename T, int HD, bool kCap>
 static int launch_hd(dim3 grid, const T* q, const T* pk, const T* pv,
                      const int* page_idx, const int* span_len, const T* tk,
@@ -156,17 +179,15 @@ static int launch_hd(dim3 grid, const T* q, const T* pk, const T* pv,
                      int KV, PageDiv div, int nbt, int Tp, int tail_len,
                      int window, float scale, float softcap,
                      cudaStream_t st) {
-  constexpr int smem = decode::smem_bytes<T, HD>();
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_paged_kernel<T, HD, kCap>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  flash_decode_paged_kernel<T, HD, kCap><<<grid, kThreads, smem, st>>>(
-      q, pk, pv, page_idx, span_len, tk, tv, out, part, tickets, H, KV, div,
-      nbt, Tp, tail_len, window, scale, softcap);
-  return (int)cudaGetLastError();
+  if (H / KV > decode::kMaxG)
+    return launch_g<T, HD, kCap, true>(grid, q, pk, pv, page_idx, span_len,
+                                       tk, tv, out, part, tickets, H, KV, div,
+                                       nbt, Tp, tail_len, window, scale,
+                                       softcap, st);
+  return launch_g<T, HD, kCap, false>(grid, q, pk, pv, page_idx, span_len,
+                                      tk, tv, out, part, tickets, H, KV, div,
+                                      nbt, Tp, tail_len, window, scale,
+                                      softcap, st);
 }
 
 template <typename T>
@@ -200,6 +221,8 @@ static int launch_typed(const void* q, const void* pk, const void* pv,
                                         st);
     PAGED_CASE(32)
     PAGED_CASE(64)
+    PAGED_CASE(80)
+    PAGED_CASE(96)
     PAGED_CASE(128)
     PAGED_CASE(256)
 #undef PAGED_CASE
@@ -208,8 +231,8 @@ static int launch_typed(const void* q, const void* pk, const void* pv,
   }
 }
 
-// tk/tv may be null (no tail); bt (rows a page) at least 1, H / KV at
-// most 8 and window at least 1. S splits a pair must cover
+// tk/tv may be null (no tail); bt (rows a page) at least 1, H a multiple
+// of KV (any G = H / KV) and window at least 1. S splits a pair must cover
 // ceil((nbt * bt + Tp) / 32) tiles (Tp counted only with a tail); part
 // holds B * KV * S partials of (H / KV) * (hd + 2) floats; tickets holds
 // B * KV zeros.
@@ -223,8 +246,8 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* pk,
                                          int window, float scale,
                                          float softcap, int dtype,
                                          void* stream) {
-  if (bt < 1 || nbt < 0 || Tp < 0 || H % KV != 0 || H / KV > kMaxG ||
-      window < 1 || !(softcap >= 0.f) ||
+  if (bt < 1 || nbt < 0 || Tp < 0 || H % KV != 0 || window < 1 ||
+      !(softcap >= 0.f) ||
       S < n_splits((int)(((long long)nbt * bt + (tk ? Tp : 0) + kBT - 1) /
                          kBT)))
     return (int)cudaErrorInvalidValue;

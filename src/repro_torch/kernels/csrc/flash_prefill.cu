@@ -101,10 +101,24 @@ flash_prefill_capped_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              window, scale, vec, softcap);
 }
 
+// An uncapped instance with one block an SM declared (prefill::one_block).
+template <typename T, int HD>
+__global__ void __launch_bounds__(prefill::threads<HD>(), prefill::kCapBlocks)
+flash_prefill_one_block_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ out,
+    const int* __restrict__ q_pos, const int* __restrict__ kv_len, int Sq,
+    int Sk, int H, int KV, int window, float scale, bool vec, float softcap) {
+  prefill_block<T, HD, false>(q, k, v, out, q_pos, kv_len, Sq, Sk, H, KV,
+                              window, scale, vec, softcap);
+}
+
 template <typename T, int HD, bool kCap>
 auto kernel_of() {
   if constexpr (kCap)
     return flash_prefill_capped_kernel<T, HD>;
+  else if constexpr (prefill::one_block<T, HD>())
+    return flash_prefill_one_block_kernel<T, HD>;
   else
     return flash_prefill_kernel<T, HD>;
 }
@@ -148,6 +162,8 @@ static int launch_typed(const void* q, const void* k, const void* v, void* out,
                                         softcap, vec, st);
     PREFILL_CASE(32)
     PREFILL_CASE(64)
+    PREFILL_CASE(80)
+    PREFILL_CASE(96)
     PREFILL_CASE(128)
     PREFILL_CASE(256)
 #undef PREFILL_CASE

@@ -115,10 +115,27 @@ flash_prefill_paged_capped_kernel(
                            scale, vec, softcap);
 }
 
+// An uncapped instance with one block an SM declared (prefill::one_block).
+template <typename T, int HD>
+__global__ void __launch_bounds__(prefill::threads<HD>(), prefill::kCapBlocks)
+flash_prefill_paged_one_block_kernel(
+    const T* __restrict__ q, const T* __restrict__ pk,
+    const T* __restrict__ pv, const int* __restrict__ page_idx,
+    const T* __restrict__ tk, const T* __restrict__ tv, T* __restrict__ out,
+    const int* __restrict__ q_pos, int Sq, int H, int KV, int bt, int nbh,
+    int span, int tail_rows, int window, int causal, float scale, bool vec,
+    float softcap) {
+  paged_block<T, HD, false>(q, pk, pv, page_idx, tk, tv, out, q_pos, Sq, H,
+                            KV, bt, nbh, span, tail_rows, window, causal,
+                            scale, vec, softcap);
+}
+
 template <typename T, int HD, bool kCap>
 auto kernel_of() {
   if constexpr (kCap)
     return flash_prefill_paged_capped_kernel<T, HD>;
+  else if constexpr (prefill::one_block<T, HD>())
+    return flash_prefill_paged_one_block_kernel<T, HD>;
   else
     return flash_prefill_paged_kernel<T, HD>;
 }
@@ -170,6 +187,8 @@ static int launch_typed(const void* q, const void* pk, const void* pv,
                                         scale, softcap, vec, st);
     PAGED_CASE(32)
     PAGED_CASE(64)
+    PAGED_CASE(80)
+    PAGED_CASE(96)
     PAGED_CASE(128)
     PAGED_CASE(256)
 #undef PAGED_CASE

@@ -93,6 +93,15 @@
 // its A fragments by ldmatrix). The ring and Q take 165 KB in bf16 and
 // 197 KB in f32: one block an SM.
 //
+// Other head dims (80: Phi-2; 96: Phi-3 and GPT-NeoX-20B): the products
+// step over HD / 16 (bf16) and HD / 8 (TF32) k-steps and HD / 16 pairs of
+// 8-column output slices, so any HD that is a multiple of 16 up to 128,
+// and of 32 above it (each of the two warps' halves in whole 16-column
+// steps), needs only an instance. The pitches keep their bank spread at
+// every such HD: a bf16 row of HD + 8 elements is an odd number of
+// 16-byte words, and the f32 pitches are +-8 (K, Q) and 4 (V) modulo 16
+// or 32 words.
+//
 // Column c sits at position c. A query at position p may see column c iff
 // c < rows.len(), p - c < window, and, when causal, p - c >= 0. The two
 // kernels differ only in where column c's K/V row lives: a Rows type says,
@@ -133,8 +142,17 @@ __host__ __device__ constexpr int threads() { return 128 * col_split<HD>(); }
 // an FMA product for Q K^T) at the register counts of three (hd 128) or
 // five (hd 32) blocks an SM and spilled 8-64 bytes; under this bound the
 // fresh-fragment product takes up to 255 registers and spills nothing.
-// The uncapped kernels declare none, as before.
+// The uncapped kernels declare none, as before, except where
+// one_block<T, HD>() says.
 constexpr int kCapBlocks = 1;
+
+// Uncapped instances that declare kCapBlocks too: left to its own choice,
+// ptxas spilled the f32 hd-96 instances (8 bytes in the dense kernel, 20
+// in the paged one).
+template <typename T, int HD>
+__host__ __device__ constexpr bool one_block() {
+  return std::is_same<T, float>::value && HD == 96;
+}
 
 // --------------------------------------------------------------- bf16
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -357,7 +375,7 @@ struct Tf32Op {
   using T = float;
   static constexpr int kBK = BK;        // KV rows per ring stage
   static constexpr int kStages = 2;
-  static constexpr int kPK = HD + 8;    // = 8 (mod 32) words: 8-byte K reads
+  static constexpr int kPK = HD + 8;    // = +-8 (mod 32) words: 8-byte K reads
   static constexpr int kPV = PV;        // HD + 4 = 4 (mod 16): 8-byte V reads
   static constexpr int kPQ = HD + 8;    // Q in shared memory, pitched as K
   static constexpr int kOut = HD / Split;  // output columns a warp
@@ -546,6 +564,8 @@ __device__ __forceinline__ void attend_tc(const T* __restrict__ q,
   constexpr int kVec = 16 / (int)sizeof(T);
   constexpr int kWords = HD / kVec;      // 16-byte words a row
   constexpr int kStage = BK * (PK + PV); // elements a ring stage
+  static_assert(HD % 16 == 0 && Op::kOut % 16 == 0,
+                "whole 16-column steps of the output a warp");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* const ring = reinterpret_cast<T*>(smem_raw);  // [stage][K | V]
   __shared__ int s_qmin, s_qmax;

@@ -44,8 +44,12 @@ LAUNCHES: Dict[str, int] = {"rope_align": 0, "block_diff": 0,
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the attention and RoPE kernels are instantiated for
-HEAD_DIMS = (32, 64, 128, 256)
+#: head dims the serving kernels (prefill pair, decode pair, rope_align)
+#: are instantiated for; their tile code takes any multiple of 16 up to
+#: 128 (and of 32 up to 256), so another needs only an instance
+HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+#: head dims the attention backward kernel is instantiated for
+BWD_HEAD_DIMS = (32, 64, 128, 256)
 
 
 def reset_launches() -> None:
@@ -218,9 +222,9 @@ def _flash_forward(q, k, v, q_pos, kv_len, window, softcap):
     return out
 
 
-def _attention_shapes(q, k, v, q_pos, kv_len):
-    """Check a dense attention call's operands for the kernels; returns
-    (B, Sq, H, hd, Sk, KV)."""
+def _attention_shapes(q, k, v, q_pos, kv_len, head_dims=HEAD_DIMS):
+    """Check a dense attention call's operands for the kernels (whose
+    instances take ``head_dims``); returns (B, Sq, H, hd, Sk, KV)."""
     _check("q", q, ndim=4)
     _check("k", k, dtype=q.dtype, ndim=4)
     _check("v", v, dtype=q.dtype, ndim=4)
@@ -229,7 +233,7 @@ def _attention_shapes(q, k, v, q_pos, kv_len):
     Sk, KV = k.shape[1], k.shape[2]
     if (k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd
             or H % KV or tuple(q_pos.shape) != (B, Sq)
-            or hd not in HEAD_DIMS):
+            or hd not in head_dims):
         raise ValueError(f"bad flash_attention shapes q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} q_pos={tuple(q_pos.shape)}")
     if kv_len is not None:
@@ -279,7 +283,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_attention_bwd_ref(q, k, v, out, dout, q_pos=q_pos,
                                            window=window, kv_len=kv_len,
                                            softcap=softcap)
-    B, Sq, H, hd, Sk, KV = _attention_shapes(q, k, v, q_pos, kv_len)
+    B, Sq, H, hd, Sk, KV = _attention_shapes(q, k, v, q_pos, kv_len,
+                                             BWD_HEAD_DIMS)
     for name, t in (("out", out), ("dout", dout)):
         _check(name, t, dtype=q.dtype, ndim=4)
         if t.shape != q.shape:
@@ -395,9 +400,10 @@ def decode_split_plan(n_tiles: int, B: int, KV: int, G: int,
     sequence) pair gets S splits of :data:`DECODE_SPLIT_TILES` tiles,
     enough for the longest sequence, and each (pair, split) one f32
     partial of ``G * (hd + 2)`` floats (acc ``[G, hd]``, then the running
-    max and sum per head). Dense: ``n_tiles = ceil(Sk / 32)``; paged
-    (tiles over positions, at any page size): ``ceil((nbt * bt + Tp) /
-    32)``."""
+    max and sum per head) at any G: a block past 8 query heads a KV head
+    writes its chunks of 8 heads into the same partial. Dense: ``n_tiles
+    = ceil(Sk / 32)``; paged (tiles over positions, at any page size):
+    ``ceil((nbt * bt + Tp) / 32)``."""
     S = max(1, -(-n_tiles // DECODE_SPLIT_TILES))
     return S, (B * KV * S, G * (hd + 2))
 
@@ -460,7 +466,7 @@ def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
     P, bt, KV, _ = pool_k.shape
     if (pool_v.shape != pool_k.shape or pool_k.shape[3] != hd
             or page_idx.shape[0] != B or span_len.shape[0] != B
-            or bt < 1 or H % KV or H // KV > 8
+            or bt < 1 or H % KV
             or hd not in HEAD_DIMS or window < 0):
         raise ValueError(f"bad flash_decode_paged args q={tuple(q.shape)} "
                          f"pool={tuple(pool_k.shape)} "
@@ -508,7 +514,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if (k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd
-            or kv_len.shape[0] != B or H % KV or H // KV > 8
+            or kv_len.shape[0] != B or H % KV
             or hd not in HEAD_DIMS or window < 1):
         raise ValueError(f"bad flash_decode args q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} kv_len={tuple(kv_len.shape)} "

@@ -30,7 +30,7 @@ such a page are the :class:`PagedSegmentCacheEntry` objects of an
 earlier round, and none of those is reachable when the next restore
 writes — ``store`` clears every restored member's ``hist_entry`` at the
 end of the round that built it, and nothing else keeps one
-(``tests/test_torch_histpool.py`` pins this with weak references).
+(``tests/test_torch_histpool_engines.py`` pins this with weak references).
 :meth:`_grow` and :meth:`promote` replace the tensors; entries built
 after either read the new ones.
 """

@@ -6,17 +6,12 @@ KV = H) and ``chameleon-34b`` (vision frontend, ``qk_norm``). Every entry
 point JAX has for the family — ``forward`` and ``prefill`` (with
 ``frontend_embeds`` where a frontend is set), ``decode_step``, and for
 the attention models ``decode_step_paged`` and ``extend`` (the PIC
-selective block with MoE is in ``test_torch_moe.py``) — and the serving
-engine for 3 rounds of ``agent_society``: Grok under every policy,
-Mamba2 through the recompute fallback and under the prefix policy
-(which recomputes every round, as in JAX), the other three with the
-defaults. The norm scales are drawn at random (JAX initialises them to
-zero), as in ``test_torch_qwen.py``.
+selective block with MoE is in ``test_torch_moe.py``; the serving engine
+in ``test_torch_archs_engines.py``). The norm scales are drawn at random
+(JAX initialises them to zero), as in ``test_torch_qwen.py``.
 
 Tolerances: logits atol 3e-5 + rtol 1e-4 (JAX's own for decode against
-forward, ``tests/test_models.py``); the MoE load-balance loss to 1e-6;
-engines as ``test_torch_qwen._assert_served_alike`` (greedy tokens and
-ledgers equal, first-token logits within 2e-4)."""
+forward, ``tests/test_models.py``); the MoE load-balance loss to 1e-6."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,9 +25,8 @@ from repro.models.transformer import extend as jax_extend
 from repro_torch import configs as tconfigs
 from repro_torch.kernels import ops
 from repro_torch.models import decode_step, extend, forward, prefill
-from repro_torch.serving import ServingEngine as TorchEngine
 from test_torch_gemma import _paged_decode_both
-from test_torch_qwen import KW, _assert_served_alike, _serve_both, _weights
+from test_torch_qwen import _weights
 
 torch.set_num_threads(1)
 
@@ -159,56 +153,3 @@ def test_extend_matches_jax(arch):
     tl, tc = extend(tparams, tcfg, torch.from_numpy(toks[:, 40:]), tc)
     _close(tl, jl)
     _close(tc["k"], jc["k"])
-
-
-# ---------------------------------------------------------------- engines
-@pytest.mark.parametrize("policy", [None, "pic", "prefix", "recompute"])
-def test_grok_engine_matches_jax(policy):
-    """Grok-1 smoke served 3 rounds under each policy: MoE in every
-    layer's recovery and decode, the capped attention at every call."""
-    jeng, js, teng, ts = _serve_both("grok-1-314b", policy, 3,
-                                     workload="agent_society")
-    assert teng.policy.name == (policy or "tokendance")
-    _assert_served_alike(jeng, js, teng, ts)
-
-
-@pytest.mark.parametrize("policy", [None, "pic", "recompute"])
-def test_mamba2_engine_matches_jax(policy):
-    """Mamba2 smoke: TokenDance and PIC fall back to recompute in both
-    packages (no attention KV to share), every round recomputes and
-    decodes through the dense loop with no attention kernel, and the
-    persistent pool stays empty (``round_kv`` gives None)."""
-    ops.reset_launches()
-    jeng, js, teng, ts = _serve_both("mamba2-2.7b", policy, 3,
-                                     workload="agent_society")
-    assert jeng.policy.name == teng.policy.name == "recompute"
-    assert not any(ops.PLAIN_CALLS.values()), dict(ops.PLAIN_CALLS)
-    _assert_served_alike(jeng, js, teng, ts)
-    assert all(s.persistent_bytes == 0 for s in ts)
-
-
-def test_mamba2_prefix_policy_serves_as_jax():
-    """The prefix policy on the attention-free model, as JAX serves it:
-    constructed under its own name, every round recomputed (no attention
-    KV, so no session is stored and no prefix reused), with JAX's tokens,
-    reuse ledger and pool bytes (``agent_society``, 3 agents, 3 rounds,
-    seed 11); no attention kernel's plain version runs."""
-    ops.reset_launches()
-    jeng, js, teng, ts = _serve_both("mamba2-2.7b", "prefix", 3,
-                                     workload="agent_society")
-    assert jeng.policy.name == teng.policy.name == "prefix"
-    assert not any(ops.PLAIN_CALLS.values()), dict(ops.PLAIN_CALLS)
-    _assert_served_alike(jeng, js, teng, ts)
-    assert all(s.persistent_bytes == 0 for s in ts)
-    assert all(s.reuse.get("prefix_len", 0) == 0 for s in ts)
-
-
-@pytest.mark.parametrize("arch", ["arctic-480b", "musicgen-large",
-                                  "chameleon-34b"])
-def test_default_engine_matches_jax(arch):
-    """The default TokenDance engine on token prompts (JAX's engine passes
-    no frontend embeddings), round 2 restoring only the delta."""
-    jeng, js, teng, ts = _serve_both(arch, None, 3, workload="agent_society")
-    assert teng.policy.name == "tokendance"
-    _assert_served_alike(jeng, js, teng, ts)
-    assert ts[-1].reuse["restore"]["incremental"]

@@ -284,7 +284,12 @@ def _close(a, b, dtype):
     torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
 
 
-GPU_CASES = [(25, 5, 64), (28, 4, 128), (10, 2, 32)]
+GPU_CASES = [(25, 5, 64), (28, 4, 128), (10, 2, 32),
+             # past 8 query heads a KV head (chunks of 8 over one ring):
+             # Mistral-Large-2's G 12, Llama-3.1-405B's 16, Falcon-180B's 29;
+             # and head dims 80 (Phi-2) and 96 (Phi-3)
+             (24, 2, 128), (32, 2, 128), (58, 2, 64), (16, 2, 80),
+             (32, 1, 96)]
 
 
 @pytest.mark.gpu
@@ -335,8 +340,12 @@ def test_gpu_flash_decode_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(2, 18, 64, device=cuda)
     k = torch.zeros(2, 64, 2, 64, device=cuda)
     kl = torch.full((2,), 64, device=cuda, dtype=torch.int32)
-    with pytest.raises(ValueError):          # G = 9 > 8
-        ops.flash_decode(q, k, k, kl, 64)
+    with pytest.raises(ValueError):          # head dim 72: no instance
+        ops.flash_decode(torch.zeros(2, 4, 72, device=cuda),
+                         torch.zeros(2, 64, 2, 72, device=cuda),
+                         torch.zeros(2, 64, 2, 72, device=cuda), kl, 64)
+    with pytest.raises(ValueError):          # H not a multiple of KV
+        ops.flash_decode(q[:, :5].contiguous(), k, k, kl, 64)
     with pytest.raises(TypeError):           # kv_len not int32
         ops.flash_decode(q[:, :4].contiguous(), k, k, kl.long(), 64)
     with pytest.raises(ValueError):          # a non-contiguous query
@@ -363,8 +372,8 @@ def _as_pages(k, v, g):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 64, 128])
-@pytest.mark.parametrize("G", [1, 5, 7, 8])
+@pytest.mark.parametrize("hd", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("G", [1, 5, 7, 8, 9, 16, 29])
 @pytest.mark.parametrize("B", [1, 64])
 def test_gpu_decode_split_edges(cuda, dtype, hd, G, B):
     """The split grid at its edges: kv_len 1, 31, 32, 33, T * 32 and
@@ -401,8 +410,8 @@ def test_gpu_decode_split_edges(cuda, dtype, hd, G, B):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 128])
-@pytest.mark.parametrize("G", [1, 7])
+@pytest.mark.parametrize("hd", [32, 96, 128])
+@pytest.mark.parametrize("G", [1, 7, 16])
 def test_gpu_decode_long_merge(cuda, dtype, hd, G):
     """Sequences of more than 32 splits, so the last split merges in more
     than one chunk of 32: kv_len 2049 (a chunk of one split), 4096 (two

@@ -71,25 +71,82 @@ else:
 TIMES = re.compile(r"\s*-?\d+(\.\d+)?(ms|s\b| subrequests/s)")
 
 
-@pytest.fixture(scope="module")
-def jax_weights(tmp_path_factory):
+# one thread a subprocess (torch's pools and XLA's): the module starts
+# all of its subprocesses at once, beside the other test workers
+ONE_THREAD = dict(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+                  XLA_FLAGS="--xla_cpu_multi_thread_eigen=false "
+                            "intra_op_parallelism_threads=1")
+
+SERVING_CASES = [
+    ("multi_agent_serving", ["--agents", "3", "--rounds", "3",
+                             "--policies", "tokendance,prefix,recompute"]),
+    ("multi_agent_serving", ["--agents", "4", "--rounds", "2",
+                             "--policies", "pic", "--topology", "grouped:2",
+                             "--workload", "agent_society"]),
+    # an SLO far past the calibration round: every agent admitted in both
+    # packages whatever the two machines' times (admission reads times)
+    ("slo_admission", ["--agents", "3", "--rounds", "2",
+                       "--slo-factor", "1000"]),
+    ("continuous_serving", ["--agents", "4", "--rounds", "2",
+                            "--stagger", "0,8"]),
+]
+
+
+def _jax_weights(path):
     """The JAX examples' weights (smoke Qwen2.5-7B, f32, PRNGKey(0)) as
     an npz in JAX's checkpoint format."""
     cfg = get_smoke_config("qwen2.5-7b").replace(dtype="float32")
-    path = str(tmp_path_factory.mktemp("w") / "qwen")
     save(path, init_params(jax.random.PRNGKey(0), cfg))
     return path + ".npz"
 
 
-def _run(tmp_path, tag, pkg, target, args):
-    out = str(tmp_path / f"{tag}.pkl")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
-    res = subprocess.run([sys.executable, "-c", SPY, out, pkg, target, *args],
-                         env=env, cwd=ROOT, capture_output=True, text=True,
-                         timeout=600)
-    assert res.returncode == 0, res.stderr[-3000:]
+def _start(out, pkg, target, args):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               **ONE_THREAD)
+    return subprocess.Popen([sys.executable, "-c", SPY, out, pkg, target,
+                             *args], env=env, cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every subprocess of the module, started together before its first
+    test: for each serving case the JAX example and the port's twin (on
+    the JAX weights), and ``train_small``. Yields the processes by key
+    (the case's index and package, or "train") with their output paths;
+    any still running at teardown is killed."""
+    tmp = tmp_path_factory.mktemp("examples")
+    weights = _jax_weights(str(tmp / "qwen"))
+    procs = {}
+    for i, (name, args) in enumerate(SERVING_CASES):
+        for tag, pkg, target, extra in (
+                ("jax", "repro", f"examples/{name}.py", []),
+                ("torch", "repro_torch", f"repro_torch.examples.{name}",
+                 ["--device", "cpu", "--weights", weights])):
+            out = str(tmp / f"{i}-{tag}.pkl")
+            procs[i, tag] = (_start(out, pkg, target, args + extra), out)
+    ck = tmp / "ck"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD)
+    procs["train"] = (subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.examples.train_small", "--device",
+         "cpu", "--steps", "30", "--seq-len", "48", "--batch", "8", "--out",
+         str(ck)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), str(ck))
+    yield procs
+    for proc, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def _result(run, timeout=600):
+    """(stdout, the pickled records) of a finished spy run."""
+    proc, out = run
+    stdout, stderr = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, stderr[-3000:]
     with open(out, "rb") as f:
-        return res.stdout, pickle.load(f)
+        return stdout, pickle.load(f)
 
 
 def _same(a, b):
@@ -107,50 +164,32 @@ def _same(a, b):
         assert a == b, (a, b)
 
 
-@pytest.mark.parametrize("name,args", [
-    ("multi_agent_serving", ["--agents", "3", "--rounds", "3",
-                             "--policies", "tokendance,prefix,recompute"]),
-    ("multi_agent_serving", ["--agents", "4", "--rounds", "2",
-                             "--policies", "pic", "--topology", "grouped:2",
-                             "--workload", "agent_society"]),
-    # an SLO far past the calibration round: every agent admitted in both
-    # packages whatever the two machines' times (admission reads times)
-    ("slo_admission", ["--agents", "3", "--rounds", "2",
-                       "--slo-factor", "1000"]),
-    ("continuous_serving", ["--agents", "4", "--rounds", "2",
-                            "--stagger", "0,8"]),
-])
-def test_serving_twin_matches_the_jax_example(tmp_path, jax_weights, name,
-                                              args):
-    jout, jrec = _run(tmp_path, "jax", "repro", f"examples/{name}.py", args)
-    tout, trec = _run(tmp_path, "torch", "repro_torch",
-                      f"repro_torch.examples.{name}",
-                      args + ["--device", "cpu", "--weights", jax_weights])
+@pytest.mark.parametrize("case", range(len(SERVING_CASES)),
+                         ids=[f"{n}-args{i}" for i, (n, _) in
+                              enumerate(SERVING_CASES)])
+def test_serving_twin_matches_the_jax_example(runs, case):
+    jout, jrec = _result(runs[case, "jax"])
+    tout, trec = _result(runs[case, "torch"])
     assert [n for n, _ in trec] == [n for n, _ in jrec] and trec
     _same([r for _, r in trec], [r for _, r in jrec])
     masked = [TIMES.sub("#", x).split() for x in (tout, jout)]
     assert masked[0] == masked[1], (tout, jout)
 
 
-def test_train_small_twin_runs_on_the_cpu(tmp_path):
+def test_train_small_twin_runs_on_the_cpu(runs):
     """``train_small`` at smoke size: the loss falls, and the checkpoint
     it writes loads into JAX's parameter tree."""
     from repro.training.checkpoint import load
 
-    out = tmp_path / "ck"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    res = subprocess.run(
-        [sys.executable, "-m", "repro_torch.examples.train_small", "--device",
-         "cpu", "--steps", "30", "--seq-len", "48", "--batch", "8", "--out",
-         str(out)], env=env, cwd=ROOT, capture_output=True, text=True,
-        timeout=300)
-    assert res.returncode == 0, res.stderr
+    proc, out = runs["train"]
+    stdout, stderr = proc.communicate(timeout=300)
+    assert proc.returncode == 0, stderr
     first, last = map(float, re.search(r"loss (\S+) -> (\S+)",
-                                       res.stdout).groups())
-    assert last < first - 0.3, res.stdout
+                                       stdout).groups())
+    assert last < first - 0.3, stdout
     cfg = get_smoke_config("qwen2.5-7b").replace(dtype="float32")
     like = init_params(jax.random.PRNGKey(0), cfg)
-    back = load(str(out), like)
+    back = load(out, like)
     assert all(np.isfinite(np.asarray(x)).all()
                for x in jax.tree.leaves(back))
     assert not all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in

@@ -3,8 +3,8 @@
 2): tied embeddings (the logits read ``embed.T``), the 5:1 local:global
 window pattern at every entry point (``prefill``, ``decode_step``,
 ``decode_step_paged``, ``extend``, ``forward``) with the smoke window of
-64 binding, and the engine served with its defaults, the prefix policy
-and the dense decode loop. ``decode_step_paged`` also runs with
+64 binding (the engine: ``test_torch_gemma_engines.py``).
+``decode_step_paged`` also runs with
 ``long_context=True`` on ``qwen3-4b``, whose window the paged decode
 kernel now takes. The norm scales are drawn at random (JAX initialises
 them to zero), as in ``test_torch_qwen.py``."""
@@ -15,23 +15,18 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
-from repro.core.rounds import generate_trace as jax_trace
 from repro.models import decode_step as jax_decode
 from repro.models import decode_step_paged as jax_decode_paged
 from repro.models import forward as jax_forward
 from repro.models import init_params as jax_init
 from repro.models import prefill as jax_prefill
 from repro.models.transformer import extend as jax_extend
-from repro.serving import ServingEngine as JaxEngine
 from repro_torch import configs as tconfigs
-from repro_torch.core.rounds import generate_trace as torch_trace
 from repro_torch.kernels import ops
 from repro_torch.models import (decode_step, decode_step_paged, extend,
                                 forward, from_jax, init_params, prefill)
 from repro_torch.models.layers import rmsnorm
-from repro_torch.serving import ServingEngine as TorchEngine
-from test_torch_qwen import (KW, TRACE, _assert_served_alike, _random_norms,
-                             _weights)
+from test_torch_qwen import _random_norms, _weights
 
 torch.set_num_threads(1)
 
@@ -202,50 +197,3 @@ def test_tied_logits_read_the_embedding():
     want = rmsnorm(hidden, tparams["final_norm"], tcfg.rmsnorm_eps) @ \
         tparams["embed"].T
     torch.testing.assert_close(logits, want, atol=0, rtol=0)
-
-
-# ---------------------------------------------------------------- engines
-def _serve_both(arch, workload, policy=(), **kw):
-    cfg, params, tcfg, tparams = _weights(arch)
-    jeng = JaxEngine(params, cfg, *policy, **KW, **kw)
-    js = jeng.serve(jax_trace(workload, 3, 3, cfg.vocab_size, **TRACE))
-    teng = TorchEngine(tparams, tcfg, *policy, **KW, **kw)
-    ts = teng.serve(torch_trace(workload, 3, 3, tcfg.vocab_size, **TRACE))
-    return jeng, js, teng, ts
-
-
-@pytest.mark.parametrize("workload", ["generative_agents", "agent_society"])
-@pytest.mark.parametrize("arch", GEMMA)
-def test_default_engine_matches_jax(arch, workload):
-    """TokenDance with paged decode and incremental restore, 3 rounds:
-    G 4 over one KV head (1B) and G 2 over 2 (12B), the window binding on
-    the local layers from round 0 (prompts of 96 tokens and more)."""
-    jeng, js, teng, ts = _serve_both(arch, workload)
-    assert teng.policy.name == "tokendance" and teng.policy.incremental
-    assert teng.paged_decode
-    assert min(s.prompt_len for s in ts) > 64
-    _assert_served_alike(jeng, js, teng, ts)
-    assert ts[-1].reuse["restore"]["incremental"]
-
-
-@pytest.mark.parametrize("arch", GEMMA)
-def test_prefix_policy_matches_jax(arch):
-    """The prefix baseline's ``extend`` under the layers' windows."""
-    jeng, js, teng, ts = _serve_both(arch, "agent_society", ("prefix",))
-    _assert_served_alike(jeng, js, teng, ts)
-    assert all(s.reuse.get("prefix_len", 0) > 0 for s in ts[1:])
-
-
-def test_dense_decode_loop_matches_jax_and_the_paged_loop():
-    """``paged_decode=False`` on gemma3-1b: the dense loop against JAX's
-    dense loop, and bit-equal to the port's paged loop (the window is
-    applied by both decode kernels' plain versions on the same rows)."""
-    jeng, js, teng, ts = _serve_both("gemma3-1b", "generative_agents",
-                                     paged_decode=False)
-    _assert_served_alike(jeng, js, teng, ts)
-    paged = TorchEngine(teng.params, teng.cfg, **KW).serve(torch_trace(
-        "generative_agents", 3, 3, teng.cfg.vocab_size, **TRACE))
-    for d, p in zip(ts, paged):
-        np.testing.assert_array_equal(d.outputs, p.outputs)
-        np.testing.assert_array_equal(d.first_logits, p.first_logits)
-        assert d.persistent_bytes == p.persistent_bytes

@@ -303,7 +303,11 @@ def jax_engines(tmp_path_factory):
     """Start the JAX engine of every case; yields case -> (process, output
     path prefix). Processes still running at teardown are killed."""
     out = tmp_path_factory.mktemp("jax_engines")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    # one thread for XLA's CPU pool: the subprocesses run beside the
+    # other test workers
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_cpu_multi_thread_eigen=false "
+                         "intra_op_parallelism_threads=1")
     runs = {}
     for case, (bs, gen) in ENGINE_CASES.items():
         prefix = str(out / case)

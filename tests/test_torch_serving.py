@@ -295,7 +295,7 @@ def test_entry_points_need_a_device_when_no_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(cfg, 0)
     # the cross-round incremental restore is ported: the JAX default
-    # constructs (tests/test_torch_histpool.py serves it)
+    # constructs (tests/test_torch_histpool_engines.py serves it)
     assert TorchTokenDance().incremental
     # MoE is ported: init_params builds the moe leaves, where it once
     # raised NotImplementedError
