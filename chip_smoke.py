@@ -4,9 +4,10 @@
 
 Phases (each prints its lines; any failure exits non-zero):
   1. the card (``nvidia-smi`` name and power limit, torch's device name);
-  2. the build of the nine CUDA kernels from the eight sources of
-     ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at
-     once), with ptxas' registers, shared memory and spills;
+  2. the build of the nine CUDA kernels from the nine sources of
+     ``src/repro_torch/kernels/csrc`` (the attention backward's bf16 and
+     f32 instances in two; one ``nvcc`` per source, all at once), with
+     ptxas' registers, shared memory and spills;
   3. the main path: Qwen2.5-7B at full width (28 layers, bf16, random
      weights from seed 0) served by ``ServingEngine(params, cfg)`` with its
      defaults — ``TokenDancePolicy()``, whose cross-round page pool makes
@@ -80,17 +81,23 @@ Phases (each prints its lines; any failure exits non-zero):
      window, capped at 30 and with a tail; each held to its plain
      version, twice bit-equal and bit-equal to the dense decode kernel
      on the gathered rows; timed beside SDPA and its bound;
-  8c. [heads] the kernels at the attention shapes of one layer of six
+  8c. [heads] the kernels at the attention shapes of one layer of seven
      public models at their published head widths (8 sequences, a span
      of 545, pages of 32): the decode pair at Mistral-Large-2's G 12 (96
      over 8), Llama-3.1-405B's G 16 (128 over 8), Qwen3-235B-A22B's G 16
      (64 over 4) and Falcon-180B's G 29 (232 over 8, head dim 64), and at
-     Phi-2's head dim 80 and Phi-3-mini's 96 (32 over 32) the decode pair,
-     the prefill pair (dense and paged), ``rope_align``, ``block_diff``
-     and both restores; bf16 and f32, windowed, capped and tailed where
-     the kernel takes it; each call against its plain version and twice
-     bit-equal, paged == dense bit for bit, timed beside its bound and
-     SDPA where SDPA computes the same function;
+     Phi-2's head dim 80, Phi-3-mini's 96 (32 over 32) and MPT-30B's 112
+     (64 over 64) the decode pair, the prefill pair (dense and paged),
+     ``rope_align``, ``block_diff`` and both restores; bf16 and f32,
+     windowed, capped and tailed where the kernel takes it; each call
+     against its plain version and twice bit-equal, paged == dense bit
+     for bit, timed beside its bound and SDPA where SDPA computes the same
+     function. Then the attention backward at one training layer (q [1,
+     4096, H, hd]) of Phi-2's layout (32 over 32, hd 80), Phi-3-mini's (hd
+     96) and 32 over 8 at hd 112, in bf16 and f32: causal, capped at 30
+     and with a binding window and kv_len, each against its plain version
+     and twice bit-equal, the causal call timed beside its bound and
+     SDPA's backward;
   8d. [heads serve] ``ServingEngine(params, cfg)`` with its defaults on
      the main path's trace at the smoke Qwen2.5-7B config with its heads
      replaced (16 over 1 at head dim 96; 8 over 2 at head dim 80; weights
@@ -105,6 +112,14 @@ Phases (each prints its lines; any failure exits non-zero):
      are dropped and the allocated bytes printed: they must fall by the
      weights' size with no ``gc.collect()`` (no reference cycle holds an
      engine), as after each of the next three phases;
+  9a. [serve 112] the main path's Qwen2.5-7B at full width and depth (28
+     layers, d 3584, bf16, seed 0) with its heads replaced by 32 query
+     heads over 4 at head dim 112 (G 8; the main path's weight sizes)
+     through ``ServingEngine(params, cfg)`` with its defaults on the main
+     path's trace, then again with ``paged_decode=False``: outputs,
+     first-token logits and persistent bytes bit-equal; every main-path
+     kernel launched and no plain version; each kernel of the path held
+     and timed as [qwen2.5-14b] holds its own;
   10. [qwen2.5-14b] Qwen2.5-14B at full width (48 layers, 40 query heads
      over 8, G 5, head dim 128, bf16 weights random from seed 0) served
      by ``ServingEngine(params, cfg)`` on the main path's trace (counts
@@ -202,6 +217,11 @@ Phases (each prints its lines; any failure exits non-zero):
      30); [train parity]: one step's gradients at full width cut to 2
      layers with the kernels against the same step with attention routed
      to the plain forward and backward (a spy on ``ops``), leaf by leaf;
+     [train heads]: Qwen3-4B at full width and depth with Phi-3-mini's
+     heads (32 over 32, head dim 96) as [train] trains it (two steps: the
+     counted one and the timed one; the peak memory); [train heads
+     parity]: [train parity] at Phi-2's heads (32 over 32, hd 80),
+     Phi-3-mini's and 32 over 8 at hd 112;
      [examples]: the four example twins (``train_small``,
      ``multi_agent_serving``, ``slo_admission``, ``continuous_serving``)
      at small arguments on the card;
@@ -1520,6 +1540,14 @@ HEAD_LAYOUTS = (
     ("Falcon-180B", 232, 8, 64),             # G 29
     ("Phi-2", 32, 32, 80),                   # head dim 80
     ("Phi-3-mini", 32, 32, 96),              # head dim 96
+    ("MPT-30B", 64, 64, 112),                # head dim 112
+)
+#: the head layouts [train heads] and [train heads parity] train Qwen3-4B
+#: with: (name, query heads, KV heads, head dim)
+TRAIN_HEAD_LAYOUTS = (
+    ("Phi-2", 32, 32, 80),
+    ("Phi-3-mini", 32, 32, 96),
+    ("hd 112 at G 4", 32, 8, 112),
 )
 
 
@@ -1761,24 +1789,59 @@ def heads_store(dev, timer, g, model, KV, hd):
                        f"layer, nb {nb}, ")
 
 
+def heads_bwd(dev, timer, g, model, H, KV, hd):
+    """The attention backward at one training layer of a layout, q [1,
+    4096, H, hd] and k/v [1, 4096, KV, hd] (the ``train_4k`` length), in
+    bf16 and f32: causal (timed beside its plain version, its bound and
+    SDPA's backward, fwd + bwd - fwd), capped at 30 with q scaled by 8,
+    and with a binding window of 1024 and kv_len 4000; each call against
+    its plain version and twice bit-equal (``bwd_case``)."""
+    S = 4096
+    for dt in (torch.bfloat16, torch.float32):
+        e, args = bwd_case(dev, g, dt, 1, S, S, H, KV, hd)
+        q, k, v, out, dout, kw = args
+        t = bwd_times(timer, q, k, v, out, dout, **kw)
+        del q, k, v, out, dout, args
+        ec, _ = bwd_case(dev, g, dt, 1, S, S, H, KV, hd, softcap=30.0,
+                         qs=8.0)
+        ew, _ = bwd_case(dev, g, dt, 1, S, S, H, KV, hd, window=1024,
+                         kv_len=[4000])
+        errs = [" / ".join(f"{x:.3g}" for x in y) for y in (e, ec, ew)]
+        say(f"[heads] {model} ({H} over {KV}, hd {hd}), {dt}: "
+            f"flash_prefill_bwd q [1, {S}, {H}, {hd}] causal: {times_line(t)}"
+            f"; {t['achieved_tflops']:.1f} TFLOP/s of the bound's products; "
+            f"max abs err dq / dk / dv causal {errs[0]}, softcap 30 "
+            f"{errs[1]}, window 1024 kv_len 4000 {errs[2]}; every call "
+            f"twice bit-equal")
+        torch.cuda.empty_cache()
+
+
 def heads_phase(dev):
     """[heads]: the kernels at the attention shapes of one layer of each
     public layout in ``HEAD_LAYOUTS`` (8 sequences, a span of 545): the
     decode pair at every layout (G 12, 16 over 8 and over 4, 29; head dims
-    80 and 96), and at head dims 80 and 96 also the prefill pair,
-    ``rope_align``, ``block_diff`` and both restores. Lines, not kernel-
-    table rows: no served path makes these calls at these widths."""
+    80, 96 and 112), and at head dims 80, 96 and 112 also the prefill
+    pair, ``rope_align``, ``block_diff`` and both restores; then the
+    attention backward at one training layer of each of
+    ``TRAIN_HEAD_LAYOUTS``. Lines, not kernel-table rows: no served path
+    makes these calls at these widths."""
     t_phase = time.perf_counter()
     timer = Timer(dev)
     g = torch.Generator(device=dev).manual_seed(28)
     for model, H, KV, hd in HEAD_LAYOUTS:
         heads_decode(dev, timer, g, model, H, KV, hd)
-        if hd in (80, 96):
+        if hd in (80, 96, 112):
             heads_prefill(dev, timer, g, model, H, KV, hd)
             heads_store(dev, timer, g, model, KV, hd)
         torch.cuda.empty_cache()
+    for model, H, KV, hd in TRAIN_HEAD_LAYOUTS:
+        heads_bwd(dev, timer, g, model, H, KV, hd)
     say(f"[heads] phase {time.perf_counter() - t_phase:.1f} s")
 
+
+#: [serve 112]: the main path's Qwen2.5-7B at full width with its heads
+#: replaced by 32 over 4 at head dim 112
+SERVE_112 = dict(n_heads=32, n_kv_heads=4, head_dim=112)
 
 #: [heads serve]: the smoke Qwen2.5-7B with its heads replaced
 HEADS_SERVE = (dict(n_heads=16, n_kv_heads=1, head_dim=96),
@@ -1903,22 +1966,24 @@ def forward_phase(dev, qwen):
     say(f"[forward] phase {time.perf_counter() - t_phase:.1f} s")
 
 
-def serve_model(dev, arch, n_layers=None, engine_kw=None):
-    """One config at its published widths (``n_layers`` cuts the depth),
-    bf16 weights random from seed 0, served by ``ServingEngine(params,
-    cfg)`` with its defaults (and ``engine_kw``) on the main path's trace;
-    counts zeroed before and read after. Each round says whether a
-    sliding window binds at its cache length (prompt + generation).
-    Returns the weights, the stats, the launches, the Recorder and the
-    rounds whose window binds."""
+def serve_model(dev, arch, n_layers=None, engine_kw=None, heads=None,
+                tag=None):
+    """One config at its published widths (``n_layers`` cuts the depth;
+    ``heads`` replaces its head layout, under the phase's ``tag``), bf16
+    weights random from seed 0, served by ``ServingEngine(params, cfg)``
+    with its defaults (and ``engine_kw``) on the main path's trace; counts
+    zeroed before and read after. Each round says whether a sliding
+    window binds at its cache length (prompt + generation). Returns the
+    weights, the stats, the launches, the Recorder and the rounds whose
+    window binds."""
     from repro_torch.configs import get_config
     from repro_torch.core.rounds import generate_trace
     from repro_torch.kernels import ops
     from repro_torch.models import init_params
     from repro_torch.serving import ServingEngine
 
-    cfg = get_config(arch)
-    tag = cfg.name
+    cfg = get_config(arch).replace(**(heads or {}))
+    tag = tag or cfg.name
     full = cfg.n_layers
     if n_layers:
         cfg = cfg.replace(n_layers=n_layers)
@@ -2323,19 +2388,21 @@ def gemma_edges(dev):
 
 
 def model_phase(dev, arch, n_layers=None, timed=True, dense=False,
-                binds=None, engine_kw=None, embeds=False):
+                binds=None, engine_kw=None, embeds=False, heads=None,
+                tag=None):
     """[<arch>]: serve (``engine_kw``: engine arguments), hold the path's
     kernels at its head layout, with ``dense`` serve again through the
     dense decode loop on the same weights (bit-equal), with ``embeds``
     run ``frontend_prefill``, then free the weights. ``binds``: the
-    rounds in which a sliding window must bind. Returns the kernel-table
-    rows."""
+    rounds in which a sliding window must bind. ``heads`` replaces the
+    config's head layout, under ``tag`` (``[serve 112]``). Returns the
+    kernel-table rows."""
     from repro_torch.kernels import ops
     from repro_torch.serving import ServingEngine
 
     t_phase = time.perf_counter()
-    served = serve_model(dev, arch, n_layers, engine_kw)
-    tag = served["cfg"].name
+    served = serve_model(dev, arch, n_layers, engine_kw, heads, tag)
+    tag = tag or served["cfg"].name
     if binds is not None:
         assert served["binds"] == binds, (tag, served["binds"], binds)
     rows = hold_kernels(tag, dev, served, timed)
@@ -2938,17 +3005,18 @@ def train_kernel(dev, launches):
                 **times[torch.bfloat16])
 
 
-def train_phase(dev):
+def train_phase(dev, heads=None, tag="train", n_train=3):
     """[train]: Qwen3-4B trained at full width and depth (36 layers, d
     2560, 32 query heads over 8, head dim 128, vocab 151936; bf16 weights
     random from seed 0) on ``SyntheticTokens`` batches of 1 x 4096 (the
     ``train_4k`` length), ``remat=True``: one step with the launch counts
     zeroed before and read after (72 ``flash_prefill``, 36
     ``flash_prefill_bwd``, no plain version), one step with CUDA events
-    between forward, backward and optimizer, then 3 steps through
-    ``train`` timed on the host clock (tokens/s); every loss finite; the
-    peak memory. Then the model is freed. Returns the launches of a
-    step."""
+    between forward, backward and optimizer, then ``n_train`` steps
+    through ``train`` timed on the host clock (tokens/s); every loss
+    finite; the peak memory. Then the model is freed. ``heads`` replaces
+    the config's head layout (``[train heads]``). Returns the launches of
+    a step."""
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.kernels import ops
     from repro_torch.models import init_params
@@ -2957,9 +3025,9 @@ def train_phase(dev):
                                       make_train_step, train)
 
     t_phase = time.perf_counter()
-    cfg = get_config("qwen3-4b")
+    cfg = get_config("qwen3-4b").replace(**(heads or {}))
     S, B = INPUT_SHAPES["train_4k"].seq_len, 1
-    say(f"[train] {cfg.name}: {cfg.n_layers} of {cfg.n_layers} layers (no "
+    say(f"[{tag}] {cfg.name}: {cfg.n_layers} of {cfg.n_layers} layers (no "
         f"depth cut), d {cfg.d_model}, {cfg.n_heads} query heads over "
         f"{cfg.n_kv_heads}, head dim {cfg.resolved_head_dim}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
@@ -2994,7 +3062,7 @@ def train_phase(dev):
     params, state, m = step(params, state, *batch(0))
     torch.cuda.synchronize()
     launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
-    say(f"[train] step 0 (untimed): loss {float(m['loss']):.4f}, grad norm "
+    say(f"[{tag}] step 0 (untimed): loss {float(m['loss']):.4f}, grad norm "
         f"{float(m['grad_norm']):.4f}; launches {launches}  plain-version "
         f"calls {plain}")
     assert launches["flash_prefill"] == 2 * cfg.n_layers, launches
@@ -3010,7 +3078,7 @@ def train_phase(dev):
     t_bwd = events["forward"].elapsed_time(events["backward"])
     t_opt = events["backward"].elapsed_time(events["optimizer"])
     step_ms = t_fwd + t_bwd + t_opt
-    say(f"[train] step 1: loss {float(m['loss']):.4f}; forward {t_fwd:.1f} "
+    say(f"[{tag}] step 1: loss {float(m['loss']):.4f}; forward {t_fwd:.1f} "
         f"ms, backward {t_bwd:.1f} ms (the {cfg.n_layers} layers' forward "
         f"again, under remat, included), optimizer {t_opt:.1f} ms, step "
         f"{step_ms:.1f} ms (CUDA events)")
@@ -3018,7 +3086,7 @@ def train_phase(dev):
     from repro_torch.launch.mesh import PEAK_FLOPS_BF16
     from repro_torch.launch.roofline import model_flops_for
     mf = model_flops_for(cfg, InputShape("train_4k", S, B, "train"))
-    say(f"[train] model FLOPs of the step (roofline.model_flops_for, 6 x "
+    say(f"[{tag}] model FLOPs of the step (roofline.model_flops_for, 6 x "
         f"{cfg.active_param_count() / 1e9:.3f} B active params x {B * S} "
         f"tokens) {mf:.4e}: {mf / (step_ms / 1e3) / 1e12:.1f} TFLOP/s in "
         f"the {step_ms:.1f} ms step, "
@@ -3027,34 +3095,40 @@ def train_phase(dev):
         f"forward and attention are not model FLOPs)")
     assert np.isfinite(float(m["loss"])), m
     del state, m
-    n = 3
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = train(cfg, opt, (data.batch(i) for i in range(2, 2 + n)), n,
-                params=params, log_every=1, device=dev,
-                log=lambda line: say(f"[train] {line}"))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    n = n_train
+    if n:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train(cfg, opt, (data.batch(i) for i in range(2, 2 + n)), n,
+                    params=params, log_every=1, device=dev,
+                    log=lambda line: say(f"[{tag}] {line}"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        say(f"[{tag}] {n} steps through train(): {wall:.2f} s, "
+            f"{n * B * S / wall:.0f} tokens/s (host clock, AdamW state "
+            f"set-up and the loss read-back each step included); losses "
+            f"{[round(x, 4) for x in res.losses]}")
+        assert res.steps == n and all(np.isfinite(res.losses)), res.losses
+        del res
     peak = torch.cuda.max_memory_allocated()
-    say(f"[train] {n} steps through train(): {wall:.2f} s, "
-        f"{n * B * S / wall:.0f} tokens/s (host clock, AdamW state set-up "
-        f"and the loss read-back each step included); losses "
-        f"{[round(x, 4) for x in res.losses]}; peak device memory "
-        f"{gib(peak):.2f} GiB (weights {gib(weights):.2f})")
-    assert res.steps == n and all(np.isfinite(res.losses)), res.losses
-    del res, params
-    freed("train", before + weights, weights)
-    say(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+    say(f"[{tag}] peak device memory {gib(peak):.2f} GiB (weights "
+        f"{gib(weights):.2f}) of the card's "
+        f"{gib(torch.cuda.get_device_properties(0).total_memory):.2f}")
+    assert peak < torch.cuda.get_device_properties(0).total_memory
+    del params
+    freed(tag, before + weights, weights)
+    say(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
-def train_parity(dev):
+def train_parity(dev, heads=None, tag="train parity"):
     """[train parity]: one step's gradients of Qwen3-4B at full width cut
     to 2 layers (bf16, seed 0, a 1 x 4096 batch) with the kernels, against
     the same step with attention routed to the plain forward and backward
     by a spy on ``ops`` (``_flash_forward`` and ``flash_attention_bwd``
     replaced for the call), leaf by leaf with the bf16 tolerance; the q, k
-    and v projections' gradients nonzero."""
+    and v projections' gradients nonzero. ``heads`` replaces the config's
+    head layout (``[train heads parity]``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     from repro_torch.models import init_params
@@ -3062,7 +3136,7 @@ def train_parity(dev):
     from repro_torch.training.optimizer import tree_leaves
     from repro_torch.training.train_loop import value_and_grad
 
-    cfg = get_config("qwen3-4b").replace(n_layers=2)
+    cfg = get_config("qwen3-4b").replace(n_layers=2, **(heads or {}))
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     params = init_params(cfg, 0, device=dev)
@@ -3103,14 +3177,16 @@ def train_parity(dev):
     worst, worst_rel = max(e for e, _ in errs), max(r for _, r in errs)
     for w in ("wq", "wk", "wv", "q_norm", "k_norm"):
         assert grads["blocks"]["attn"][w].float().abs().max() > 0, w
-    say(f"[train parity] {cfg.name} at full width, 2 layers, bf16, 1 x 4096: "
+    say(f"[{tag}] {cfg.name} at full width, 2 layers, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, head dim {cfg.resolved_head_dim}, "
+        f"bf16, 1 x 4096: "
         f"loss {float(loss):.6f} with the kernels, {float(ploss):.6f} with "
         f"the plain attention; {len(tree_leaves(grads))} gradient leaves "
         f"within the bf16 tolerance, max abs err {worst:.3g}, max err over "
         f"each leaf's largest |g| {worst_rel:.3g}; wq, wk, wv, q_norm and "
         f"k_norm gradients nonzero")
     del params, grads, pgrads
-    freed("train parity", before + weights, weights)
+    freed(tag, before + weights, weights)
 
 
 def launch_phase(dev):
@@ -3588,6 +3664,10 @@ def main() -> int:
     weights = nbytes(*tensors(qwen["params"]))
     del qwen
     freed("qwen2.5-7b", before, weights)
+    # [serve 112]: the main path's model with 32 query heads over 4 at head
+    # dim 112 (3584 = 32 x 112, G 8: the main path's weight sizes)
+    table += table_rows(model_phase(dev, "qwen2.5-7b", dense=True, binds=[],
+                                    heads=SERVE_112, tag="serve 112"))
     table += table_rows(model_phase(dev, "qwen2.5-14b", binds=[]))
     table += table_rows(model_phase(dev, "qwen3-4b", timed=False,
                                     dense=True, binds=[]))
@@ -3624,6 +3704,16 @@ def main() -> int:
     table += table_rows([train_kernel(dev,
                                       train_launches["flash_prefill_bwd"])])
     train_parity(dev)
+    # [train heads]: Qwen3-4B at Phi-3-mini's heads, 32 over 32 at hd 96
+    _, H, KV, hd = TRAIN_HEAD_LAYOUTS[1]
+    heads_launches = train_phase(
+        dev, dict(n_heads=H, n_kv_heads=KV, head_dim=hd), "train heads",
+        n_train=0)
+    assert heads_launches == train_launches, (heads_launches,
+                                              train_launches)
+    for model, H, KV, hd in TRAIN_HEAD_LAYOUTS:
+        train_parity(dev, dict(n_heads=H, n_kv_heads=KV, head_dim=hd),
+                     f"train heads parity {model}")
     examples_phase()
     launch_phase(dev)
     smoke_parity(dev)

@@ -3,22 +3,25 @@
     python3 scripts/probe_bwd_kernel.py
     python3 scripts/probe_bwd_kernel.py --ab PARENT . . PARENT
 
-Without ``--ab``: builds ``csrc/flash_prefill.cu`` and
-``csrc/flash_prefill_bwd.cu`` (not the other sources) and prints the
+Without ``--ab``: builds ``csrc/flash_prefill.cu`` and the backward's
+sources (``csrc/flash_prefill_bwd.cu`` and, where the checkout splits its
+f32 instances out, ``csrc/flash_prefill_bwd_f32.cu``; not the other
+sources) and prints the
 registers, spill stores and loads, and shared memory ptxas gives each
 instance of ``dq_kernel`` and ``dkv_kernel`` (element type, head dim,
 capped or not). Then runs ``ops.flash_attention_bwd`` against
 ``ref.flash_attention_bwd_ref`` in f32 and bf16 at head dims 32 / 64 /
-128 / 256 with G 1 / 2 / 8, binding windows, ragged ``kv_len`` and a soft
-cap of 30, each call twice for the same bits, and at Qwen3-4B's training
-layer, q [1, 4096, 32, 128] and k/v [1, 4096, 8, 128], causal, times it:
-the whole call (CUDA events, median of 7 calls with the L2 cache evicted
-before each), each of its two kernels alone (device time from
-``torch.profiler``, mean of 5 calls), the achieved rate of the whole call
-against its bound (five products a pair over the causal pairs, 2.5 x the
-forward's, at 989 TFLOP/s in bf16 and, in f32, three TF32 products at 495)
-and SDPA's backward on the same inputs. A quick check of a change to the
-kernel before ``chip_smoke.py``: a few minutes on the card.
+80 / 96 / 112 / 128 / 256 with G 1 / 2 / 4 / 8, binding windows, ragged
+``kv_len`` and a soft cap of 30, each call twice for the same bits, and
+at Qwen3-4B's training layer, q [1, 4096, 32, 128] and k/v [1, 4096, 8,
+128], causal, times it: the whole call (CUDA events, median of 7 calls
+with the L2 cache evicted before each), each of its two kernels alone
+(device time from ``torch.profiler``, mean of 5 calls), the achieved rate
+of the whole call against its bound (five products a pair over the causal
+pairs, 2.5 x the forward's, at 989 TFLOP/s in bf16 and, in f32, three
+TF32 products at 495) and SDPA's backward on the same inputs. A quick
+check of a change to the kernel before ``chip_smoke.py``: a few minutes
+on the card.
 
 With ``--ab``: each argument is the root of a checkout with
 ``src/repro_torch``; each runs as a process of its own that builds that
@@ -49,8 +52,30 @@ CASES = [(2, 70, 70, 4, 2, 32, None, None, 0.0),
          (1, 90, 90, 8, 8, 128, None, None, 30.0),
          (2, 77, 77, 16, 2, 256, 40, [77, 60], 30.0),
          (1, 200, 200, 8, 8, 256, None, None, 0.0),
-         (1, 1024, 1024, 16, 4, 128, None, None, 0.0)]
+         (1, 1024, 1024, 16, 4, 128, None, None, 0.0),
+         # head dims 80 / 96 / 112: f32 splits the output columns over two
+         # warps in 40 / 48 / 56 columns (a last half step at 80 and 112)
+         (2, 141, 141, 4, 4, 80, None, None, 0.0),
+         (2, 100, 130, 8, 2, 80, 37, [130, 101], 30.0),
+         (1, 141, 141, 8, 8, 96, None, None, 30.0),
+         (2, 200, 200, 8, 2, 96, 70, [200, 151], 0.0),
+         (2, 141, 141, 8, 2, 112, None, None, 0.0),
+         (2, 100, 130, 4, 4, 112, 37, [130, 101], 30.0),
+         (1, 1024, 1024, 16, 4, 112, None, None, 30.0)]
 TRAIN = (1, 4096, 4096, 32, 8, 128)      # B, Sq, Sk, H, KV, hd: Qwen3-4B
+
+
+def sources(kb) -> tuple:
+    """The sources this script builds in a checkout: the dense prefill
+    and the backward's (one, or one an element type)."""
+    return tuple(s for s in kb.SOURCES
+                 if s == "flash_prefill" or s.startswith("flash_prefill_bwd"))
+
+
+def logs(kb) -> str:
+    """The ptxas reports of the backward's sources, joined."""
+    return "\n".join(kb.BUILD_LOGS[s] for s in sources(kb)
+                     if s != "flash_prefill")
 
 
 def card() -> str:
@@ -209,12 +234,12 @@ def ab_run(root: str) -> dict:
             f"sys.path[:0] = ['src', {str(ROOT / 'scripts')!r}]; "
             "import torch, probe_bwd_kernel as p; "
             "from repro_torch.kernels import build as kb; "
-            "kb.build_all(('flash_prefill', 'flash_prefill_bwd')); "
+            "kb.build_all(p.sources(kb)); "
             "dev = torch.device('cuda'); "
             "flush = torch.empty(16 * 2 ** 20, device=dev); "
             "out = {str(dt).split('.')[-1]: p.train_shape(dev, dt, flush) "
             "for dt in (torch.bfloat16, torch.float32)}; "
-            "rows = p.instances(kb.BUILD_LOGS['flash_prefill_bwd']); "
+            "rows = p.instances(p.logs(kb)); "
             "out.update(rows and {"
             "'max_registers': max(r['registers'] for r in rows), "
             "'spilled': [r for r in rows if r['spill_stores']]}); "
@@ -240,9 +265,9 @@ def main() -> int:
     from repro_torch.kernels import build as kb
 
     t0 = time.perf_counter()
-    kb.build_all(("flash_prefill", "flash_prefill_bwd"))
+    kb.build_all(sources(kb))
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
-    for r in instances(kb.BUILD_LOGS["flash_prefill_bwd"]):
+    for r in instances(logs(kb)):
         print(json.dumps(r))
     dev = torch.device("cuda")
     ok = all([case(dev, dt, *c) for dt in (torch.float32, torch.bfloat16)

@@ -23,8 +23,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("rope_align", "block_diff", "flash_prefill", "flash_prefill_bwd",
-           "flash_prefill_paged", "flash_decode_paged", "flash_decode",
-           "diff_restore")
+           "flash_prefill_bwd_f32", "flash_prefill_paged",
+           "flash_decode_paged", "flash_decode", "diff_restore")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,8 +44,12 @@ SIGNATURES = {
     "flash_prefill": ("flash_prefill_launch",
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _F, _F, _I, _P]),
+    # the attention backward: its bf16 and f32 instances are two sources
+    # (built in parallel) with one C signature
     "flash_prefill_bwd": ("flash_prefill_bwd_launch",
                           [_P] * 12 + [_I] * 7 + [_F, _F, _I, _P]),
+    "flash_prefill_bwd_f32": ("flash_prefill_bwd_f32_launch",
+                              [_P] * 12 + [_I] * 7 + [_F, _F, _I, _P]),
     "flash_prefill_paged": ("flash_prefill_paged_launch",
                             [_P] * 8 + [_I] * 11 + [_F, _F, _I, _P]),
     "flash_decode_paged": ("flash_decode_paged_launch",

@@ -37,7 +37,8 @@
 // and publishes p and the rescale factor; then each thread accumulates one
 // output column of every head of the chunk in registers over its share of
 // the rows (kGroups = 256 / HD row groups; at a head dim that does not
-// divide 256, 80 or 96, the threads past kGroups * HD idle in that step).
+// divide 256, 80, 96 or 112, the threads past kGroups * HD idle in that
+// step).
 // Two barriers a tile. At these sizes a call is a chain of round trips
 // and short serial loops, not a stream of bytes: one warp per head (256
 // threads, not 128) halves each warp's serial work a tile, and took the

@@ -173,6 +173,7 @@ static int launch_typed(const void* q, const void* k, const void* v,
     DENSE_CASE(64)
     DENSE_CASE(80)
     DENSE_CASE(96)
+    DENSE_CASE(112)
     DENSE_CASE(128)
     DENSE_CASE(256)
 #undef DENSE_CASE

@@ -164,6 +164,7 @@ static int launch_typed(const void* q, const void* k, const void* v, void* out,
     PREFILL_CASE(64)
     PREFILL_CASE(80)
     PREFILL_CASE(96)
+    PREFILL_CASE(112)
     PREFILL_CASE(128)
     PREFILL_CASE(256)
 #undef PREFILL_CASE

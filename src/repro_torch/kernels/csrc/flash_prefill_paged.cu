@@ -189,6 +189,7 @@ static int launch_typed(const void* q, const void* pk, const void* pv,
     PAGED_CASE(64)
     PAGED_CASE(80)
     PAGED_CASE(96)
+    PAGED_CASE(112)
     PAGED_CASE(128)
     PAGED_CASE(256)
 #undef PAGED_CASE

@@ -93,14 +93,18 @@
 // its A fragments by ldmatrix). The ring and Q take 165 KB in bf16 and
 // 197 KB in f32: one block an SM.
 //
-// Other head dims (80: Phi-2; 96: Phi-3 and GPT-NeoX-20B): the products
-// step over HD / 16 (bf16) and HD / 8 (TF32) k-steps and HD / 16 pairs of
-// 8-column output slices, so any HD that is a multiple of 16 up to 128,
-// and of 32 above it (each of the two warps' halves in whole 16-column
-// steps), needs only an instance. The pitches keep their bank spread at
-// every such HD: a bf16 row of HD + 8 elements is an odd number of
-// 16-byte words, and the f32 pitches are +-8 (K, Q) and 4 (V) modulo 16
-// or 32 words.
+// Other head dims (80: Phi-2; 96: Phi-3 and GPT-NeoX-20B; 112: MPT-30B):
+// the products step over HD / 16 (bf16) and HD / 8 (TF32) k-steps and
+// HD / 16 pairs of 8-column output slices, so any HD that is a multiple
+// of 16 up to 128, and of 32 above it (each of the two warps' halves in
+// whole 16-column steps), needs only an instance. The pitches keep their
+// bank spread at every such HD: a bf16 row of HD + 8 elements is an odd
+// number of 16-byte words, and the f32 pitches are +-8 (K, Q) and 4 (V)
+// modulo 16 or 32 words. A warp's share of the output columns may end in
+// half a step where the attention backward splits f32 columns over two
+// warps (40 and 56 columns at head dims 80 and 112): Tf32Op's product (in
+// its fresh-fragment form) and store then take one 8-column slice after
+// the whole steps (kHalf).
 //
 // Column c sits at position c. A query at position p may see column c iff
 // c < rows.len(), p - c < window, and, when causal, p - c >= 0. The two
@@ -151,7 +155,16 @@ constexpr int kCapBlocks = 1;
 // in the paged one).
 template <typename T, int HD>
 __host__ __device__ constexpr bool one_block() {
-  return std::is_same<T, float>::value && HD == 96;
+  return std::is_same<T, float>::value && (HD == 96 || HD == 112);
+}
+
+// k-steps of the capped f32 Q K^T unrolled at once (Tf32Op::scores'
+// kSteps; 0: all of them). Wholly unrolled, ptxas spilled the hd-112
+// instances at 255 registers (28 bytes in the dense kernel, 52 in the
+// paged one); two at a time they take 197 and 193 and spill nothing.
+template <int HD>
+__host__ __device__ constexpr int cap_steps() {
+  return HD == 112 ? 2 : 0;
 }
 
 // --------------------------------------------------------------- bf16
@@ -218,7 +231,7 @@ __device__ __forceinline__ void split_pair(float p0, float p1, uint32_t& hi,
 }
 
 // BK, QRegs and Split default to the prefill kernels' choice; the
-// attention backward (flash_prefill_bwd.cu) takes the same products on
+// attention backward (prefill_bwd.cuh) takes the same products on
 // other tiles (fewer rows a stage, the A operand always in shared memory
 // in dkv_kernel, more warps sharing a row group's output columns).
 template <int HD, int BK = 64, bool QRegs = (HD <= 128),
@@ -230,6 +243,7 @@ struct Bf16Op {
   static constexpr int kPK = HD + 8;    // shared row pitches, elements
   static constexpr int kPV = HD + 8;
   static constexpr int kOut = HD / Split;  // output columns a warp
+  static_assert(kOut % 16 == 0, "whole 16-column steps a warp");
   // Q's A fragments stay in registers up to hd 128 (64 a lane there); at
   // hd 256 Q is staged in shared memory and each k-step's fragment is
   // read by ldmatrix (the same values, so the same products)
@@ -379,6 +393,8 @@ struct Tf32Op {
   static constexpr int kPV = PV;        // HD + 4 = 4 (mod 16): 8-byte V reads
   static constexpr int kPQ = HD + 8;    // Q in shared memory, pitched as K
   static constexpr int kOut = HD / Split;  // output columns a warp
+  static constexpr int kHalf = kOut % 16;  // 8: a last single slice
+  static_assert(kOut % 8 == 0, "whole 8-column slices a warp");
 
   const float* qw;                      // this warp's 16 rows of Q
 
@@ -448,9 +464,10 @@ struct Tf32Op {
   // 6, 1, 3, 5, 7): column l % 4 of P's A fragment is key 2 (l % 4), held
   // in s[kk][0] / [2], and column l % 4 + 4 is key 2 (l % 4) + 1, in
   // s[kk][1] / [3]. Output slices 2 e and 2 e + 1 take dims 16 e + 2 n and
-  // 16 e + 2 n + 1 for their column n. kFresh (the attention backward):
-  // each k-step's products go into a zero fragment, added to acc in f32,
-  // with each slice pair's V values loaded as they are used
+  // 16 e + 2 n + 1 for their column n; a last single slice (kHalf) takes
+  // dim kOut - 8 + n. kFresh (the attention backward): each k-step's
+  // products go into a zero fragment, added to acc in f32, with each slice
+  // pair's V values loaded as they are used
   template <bool kFresh = false>
   __device__ __forceinline__ void pv(float (&acc)[kOut / 8][4],
                                      const float (&s)[kBK / 8][4],
@@ -465,6 +482,17 @@ struct Tf32Op {
       split_tf32(s[kk][3], ph[3], pl[3]);
       const T* const va = Vs + (8 * kk + 2 * tg) * kPV + 2 * g;   // key 2 tg
       const T* const vb = va + kPV;                               // + 1
+      if constexpr (kHalf > 0) {
+        static_assert(kFresh, "a half step only in the backward's products");
+        const T* const h = Vs + (8 * kk + 2 * tg) * kPV + kOut - 8 + g;
+        uint32_t ah, al, bh, bl;
+        split_tf32(h[0], ah, al);
+        split_tf32(h[kPV], bh, bl);
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_3xtf32(t, ph, pl, ah, bh, al, bl);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[kOut / 8 - 1][i] += t[i];
+      }
       if constexpr (kFresh) {
 #pragma unroll
         for (int e = 0; e < kOut / 16; ++e) {
@@ -507,7 +535,8 @@ struct Tf32Op {
   }
 
   // rows r0 and r1, dims 16 e + 4 (l % 4) .. + 3 of each slice pair, as
-  // 16-byte stores (out is the wrappers' torch.empty_like: aligned)
+  // 16-byte stores (out is the wrappers' torch.empty_like: aligned), and
+  // dims kOut - 8 + 2 (l % 4), + 1 of a last single slice
   __device__ __forceinline__ void store(T* out, long long o0, long long o1,
                                         const float (&acc)[kOut / 8][4],
                                         float d0, float d1, bool v0, bool v1,
@@ -523,6 +552,16 @@ struct Tf32Op {
       if (v1)
         *reinterpret_cast<float4*>(out + o1 + c) =
             make_float4(x[2] / d1, y[2] / d1, x[3] / d1, y[3] / d1);
+    }
+    if constexpr (kHalf > 0) {
+      const float(&x)[4] = acc[kOut / 8 - 1];
+      const int c = kOut - 8 + 2 * tg;
+      if (v0)
+        *reinterpret_cast<float2*>(out + o0 + c) =
+            make_float2(x[0] / d0, x[1] / d0);
+      if (v1)
+        *reinterpret_cast<float2*>(out + o1 + c) =
+            make_float2(x[2] / d1, x[3] / d1);
     }
   }
 };
@@ -681,7 +720,7 @@ __device__ __forceinline__ void attend_tc(const T* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
     if constexpr (kCap && std::is_same<T, float>::value)
-      op.template scores<true>(s, Ks, lane);
+      op.template scores<true, cap_steps<HD>()>(s, Ks, lane);
     else
       op.scores(s, Ks, lane);
 

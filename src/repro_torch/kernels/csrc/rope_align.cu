@@ -112,9 +112,11 @@ int launch(const T* k, T* out, const int* delta, const float* inv_freq,
     ROPE_CASE(4)
     ROPE_CASE(5)
     ROPE_CASE(6)
+    ROPE_CASE(7)
     ROPE_CASE(8)
     ROPE_CASE(10)
     ROPE_CASE(12)
+    ROPE_CASE(14)
     ROPE_CASE(16)
     ROPE_CASE(32)
 #undef ROPE_CASE
@@ -127,11 +129,11 @@ int launch(const T* k, T* out, const int* delta, const float* inv_freq,
 }  // namespace rope_align
 
 // k, out [A, S, KV, hd], 16-byte aligned; half a head fills 2, 4, 5, 6,
-// 8, 10, 12, 16 or 32 whole 16-byte words (hd 32, 64, 80, 96, 128, 256 in
-// both types: 5 and 10 words are hd 80 in bf16 and f32, 6 and 12 hd 96;
-// 32 words is f32 at hd 256, whose 128 angles a token still take one pass
-// of the block's first 128 threads). The kernel takes any W: another head
-// dim needs only its case.
+// 7, 8, 10, 12, 14, 16 or 32 whole 16-byte words (hd 32, 64, 80, 96, 112,
+// 128, 256 in both types: 5 and 10 words are hd 80 in bf16 and f32, 6 and
+// 12 hd 96, 7 and 14 hd 112; 32 words is f32 at hd 256, whose 128 angles
+// a token still take one pass of the block's first 128 threads). The
+// kernel takes any W: another head dim needs only its case.
 extern "C" int rope_align_launch(const void* k, void* out, const int* delta,
                                  const float* inv_freq, int A, int D, int S,
                                  int KV, int hd, int dtype, void* stream) {

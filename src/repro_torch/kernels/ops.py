@@ -19,9 +19,9 @@ so a run can show that its path went through each kernel.
 
 ``flash_attention`` is differentiable: a call with grad goes through
 :class:`FlashAttention`, whose backward is ``flash_attention_bwd`` (the
-backward kernel ``csrc/flash_prefill_bwd.cu``, counted as
-``flash_prefill_bwd``). The paged prefill and the two decode wrappers
-have no backward: no gradient reaches them.
+backward kernel ``csrc/prefill_bwd.cuh``, two libraries, one an element
+type, counted as ``flash_prefill_bwd``). The paged prefill and the two
+decode wrappers have no backward: no gradient reaches them.
 """
 from __future__ import annotations
 
@@ -44,12 +44,11 @@ LAUNCHES: Dict[str, int] = {"rope_align": 0, "block_diff": 0,
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the serving kernels (prefill pair, decode pair, rope_align)
-#: are instantiated for; their tile code takes any multiple of 16 up to
-#: 128 (and of 32 up to 256), so another needs only an instance
-HEAD_DIMS = (32, 64, 80, 96, 128, 256)
-#: head dims the attention backward kernel is instantiated for
-BWD_HEAD_DIMS = (32, 64, 128, 256)
+#: head dims every attention and RoPE kernel is instantiated for: the
+#: prefill pair and its backward, the decode pair, rope_align. Their tile
+#: code takes any multiple of 16 up to 128 (and of 32 up to 256), so
+#: another needs only an instance in each of them
+HEAD_DIMS = (32, 64, 80, 96, 112, 128, 256)
 
 
 def reset_launches() -> None:
@@ -107,12 +106,14 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch(kernel: str, *args) -> None:
-    """Launch through the C interface; it returns cudaGetLastError(), so
-    a refused launch raises here, where it happened."""
+def _launch(kernel: str, *args, via: Optional[str] = None) -> None:
+    """Launch through the C interface (``via``: the launch function of
+    another library than the kernel's own, counted as ``kernel``); it
+    returns cudaGetLastError(), so a refused launch raises here, where it
+    happened."""
     from repro_torch.kernels.build import launcher
 
-    rc = launcher(kernel)(*args)
+    rc = launcher(via or kernel)(*args)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
     LAUNCHES[kernel] += 1
@@ -222,9 +223,10 @@ def _flash_forward(q, k, v, q_pos, kv_len, window, softcap):
     return out
 
 
-def _attention_shapes(q, k, v, q_pos, kv_len, head_dims=HEAD_DIMS):
-    """Check a dense attention call's operands for the kernels (whose
-    instances take ``head_dims``); returns (B, Sq, H, hd, Sk, KV)."""
+def _attention_shapes(q, k, v, q_pos, kv_len):
+    """Check a dense attention call's operands for the forward and the
+    backward kernel (whose instances take :data:`HEAD_DIMS`); returns (B,
+    Sq, H, hd, Sk, KV)."""
     _check("q", q, ndim=4)
     _check("k", k, dtype=q.dtype, ndim=4)
     _check("v", v, dtype=q.dtype, ndim=4)
@@ -233,7 +235,7 @@ def _attention_shapes(q, k, v, q_pos, kv_len, head_dims=HEAD_DIMS):
     Sk, KV = k.shape[1], k.shape[2]
     if (k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd
             or H % KV or tuple(q_pos.shape) != (B, Sq)
-            or hd not in head_dims):
+            or hd not in HEAD_DIMS):
         raise ValueError(f"bad flash_attention shapes q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} q_pos={tuple(q_pos.shape)}")
     if kv_len is not None:
@@ -272,10 +274,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         softcap: float = 0.0):
     """Gradients (dq, dk, dv) of :func:`flash_attention` at ``out`` (its
     result) for the output gradient ``dout``, in the inputs' dtype: the
-    backward kernel (``csrc/flash_prefill_bwd.cu``; one call launches its
-    two kernels, three in f32 at head dim 256, counted once) on a CUDA
-    tensor,
-    ``ref.flash_attention_bwd_ref`` on the CPU. The kernel recomputes the
+    backward kernel (``csrc/prefill_bwd.cuh``, built as
+    ``flash_prefill_bwd.cu`` for bf16 and ``flash_prefill_bwd_f32.cu`` for
+    f32; one call launches its two kernels, three in f32 at head dim 256,
+    counted once as ``flash_prefill_bwd``) on a CUDA tensor,
+    ``ref.flash_attention_bwd_ref`` on the CPU. The kernel takes the head
+    dims of :data:`HEAD_DIMS`, as the forward does. It recomputes the
     log-sum-exp of each row (in base 2) and writes it, and ``rowsum(dout
     * out)``, to f32 scratch ``[B, H, Sq]`` allocated here."""
     softcap = _softcap(softcap)
@@ -283,8 +287,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_attention_bwd_ref(q, k, v, out, dout, q_pos=q_pos,
                                            window=window, kv_len=kv_len,
                                            softcap=softcap)
-    B, Sq, H, hd, Sk, KV = _attention_shapes(q, k, v, q_pos, kv_len,
-                                             BWD_HEAD_DIMS)
+    B, Sq, H, hd, Sk, KV = _attention_shapes(q, k, v, q_pos, kv_len)
     for name, t in (("out", out), ("dout", dout)):
         _check(name, t, dtype=q.dtype, ndim=4)
         if t.shape != q.shape:
@@ -300,7 +303,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
             q_pos.data_ptr(), None if kv_len is None else kv_len.data_ptr(),
             B, Sq, Sk, H, KV, hd, window, 1.0 / math.sqrt(hd), softcap,
-            _DTYPES[q.dtype], _stream(q))
+            _DTYPES[q.dtype], _stream(q),
+            via="flash_prefill_bwd_f32" if q.dtype == torch.float32 else None)
     return dq, dk, dv
 
 

@@ -287,9 +287,9 @@ def _close(a, b, dtype):
 GPU_CASES = [(25, 5, 64), (28, 4, 128), (10, 2, 32),
              # past 8 query heads a KV head (chunks of 8 over one ring):
              # Mistral-Large-2's G 12, Llama-3.1-405B's 16, Falcon-180B's 29;
-             # and head dims 80 (Phi-2) and 96 (Phi-3)
+             # and head dims 80 (Phi-2), 96 (Phi-3) and 112 (MPT-30B)
              (24, 2, 128), (32, 2, 128), (58, 2, 64), (16, 2, 80),
-             (32, 1, 96)]
+             (32, 1, 96), (16, 2, 112)]
 
 
 @pytest.mark.gpu
@@ -372,7 +372,7 @@ def _as_pages(k, v, g):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("hd", [32, 64, 80, 96, 112, 128])
 @pytest.mark.parametrize("G", [1, 5, 7, 8, 9, 16, 29])
 @pytest.mark.parametrize("B", [1, 64])
 def test_gpu_decode_split_edges(cuda, dtype, hd, G, B):

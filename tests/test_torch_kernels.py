@@ -446,7 +446,7 @@ GPU_DTYPES = [torch.float32, torch.bfloat16]
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", GPU_DTYPES)
-@pytest.mark.parametrize("hd", [32, 64, 80, 96, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 80, 96, 112, 128, 256])
 @pytest.mark.parametrize("lead,S,KV,D", [
     ((28,), 544, 4, 1),          # the shared blocks' call
     ((8, 28), 32, 4, 8),         # the decode tails' call
@@ -480,7 +480,8 @@ def _family(cuda, dtype, N, L, S, KV, hd, seed):
     (1, 544, 4, 128),            # one layer, the path's tokens
     (2, 70, 5, 32),              # 5 KV heads of 32
     (2, 100, 1, 80),             # Phi-2's head dim
-    (2, 100, 2, 96)])            # Phi-3's
+    (2, 100, 2, 96),             # Phi-3's
+    (2, 100, 2, 112)])           # MPT-30B's
 def test_gpu_block_diff(cuda, dtype, N, L, S, KV, hd):
     """Bit-exact against the plain version for any family size (16 needs
     two chunks of members a thread), the Master mid-family, some members and
@@ -617,7 +618,7 @@ def _shifted(x):
 # G 1, 2 (Gemma3-12B), 4 (Gemma3-1B) and 8
 EDGE_HEADS = [(hd, G) for hd in (32, 64, 128) for G in (1, 5, 7, 8)] + \
     [(256, G) for G in (1, 2, 4, 8)] + \
-    [(hd, G) for hd in (80, 96) for G in (1, 4)]
+    [(hd, G) for hd in (80, 96, 112) for G in (1, 4)]
 
 
 @pytest.mark.gpu
@@ -670,12 +671,19 @@ def test_gpu_flash_prefill_edges(cuda, dtype, case, hd, G):
           f"flash_prefill {case} hd {hd} G {G}")
 
 
+# head dims x G of the backward's edge tests: 32, 64, 128 and 256 at G 1,
+# 5 and 8; 80 (Phi-2), 96 (Phi-3-mini) and 112 (MPT-30B), whose f32
+# instances split the output columns over two warps in 40, 48 and 56
+# columns (a last half step at 80 and 112), at G 1 and 4
+BWD_HEADS = [(hd, G) for hd in (32, 64, 128, 256) for G in (1, 5, 8)] + \
+    [(hd, G) for hd in (80, 96, 112) for G in (1, 4)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", GPU_DTYPES)
 @pytest.mark.parametrize("case", ["causal", "window_kv_len", "softcap",
                                   "selected", "unaligned"])
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
-@pytest.mark.parametrize("G", [1, 5, 8])
+@pytest.mark.parametrize("hd,G", BWD_HEADS)
 def test_gpu_flash_attention_bwd(cuda, dtype, case, hd, G):
     """The backward kernel (``ops.flash_attention_bwd``, one launch of its
     two kernels) against ``ref.flash_attention_bwd_ref``: dq, dk and dv
@@ -777,7 +785,7 @@ def test_gpu_flash_decode_paged(cuda, dtype, H, KV, hd):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", GPU_DTYPES)
-@pytest.mark.parametrize("hd", [32, 64, 80, 96, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 80, 96, 112, 128, 256])
 @pytest.mark.parametrize("G", [1, 5, 7, 8, 12, 16, 29])
 @pytest.mark.parametrize("B", [1, 64])
 def test_gpu_flash_decode_paged_split_tails(cuda, dtype, hd, G, B):
@@ -822,7 +830,7 @@ def test_gpu_flash_decode_paged_split_tails(cuda, dtype, hd, G, B):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", GPU_DTYPES)
-@pytest.mark.parametrize("hd", [32, 80, 96, 128, 256])
+@pytest.mark.parametrize("hd", [32, 80, 96, 112, 128, 256])
 @pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
 def test_gpu_flash_decode_paged_window(cuda, dtype, hd, G):
     """The paged decode kernel's window: spans of whole pages (1, 3, 17
@@ -880,7 +888,7 @@ def test_gpu_flash_decode_paged_window(cuda, dtype, hd, G):
 @pytest.mark.parametrize("dtype", GPU_DTYPES)
 @pytest.mark.parametrize("bt", [16, 24, 64, 128])
 @pytest.mark.parametrize("hd,G", [(128, 7), (256, 2), (64, 8), (128, 16),
-                                  (96, 1), (80, 1)])
+                                  (96, 1), (80, 1), (112, 8)])
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 def test_gpu_flash_decode_paged_page_sizes(cuda, dtype, bt, hd, G, softcap):
     """Pages of 16, 24 (no divisor of the kernel's 32-row tile), 64 and
@@ -974,7 +982,8 @@ def _restore_inputs(cuda, dtype, counts, pad, shifted, L, nb, bt, KV, hd):
                                            (2, 9, 128, 1, 256),
                                            (2, 9, 32, 8, 256),
                                            (2, 9, 32, 1, 80),
-                                           (2, 9, 32, 2, 96)])
+                                           (2, 9, 32, 2, 96),
+                                           (2, 9, 32, 4, 112)])
 def test_gpu_restore_kernels(cuda, dtype, case, L, nb, bt, KV, hd):
     """Both restore kernels against their plain versions, each into a
     fresh pool: bit for bit in aligned frames (pure data movement), the
@@ -1450,9 +1459,11 @@ QWEN_LAYOUTS = [(40, 8, 128), (32, 8, 128), (64, 8, 128)]
 GEMMA_LAYOUTS = [(4, 1, 256), (16, 8, 256)]
 # past 8 query heads a KV head: Mistral-Large-2 (G 12), Llama-3.1-405B
 # (G 16 over 8), Qwen3-235B-A22B (G 16 over 4), Falcon-180B (G 29, hd 64);
-# head dims 80 (Phi-2) and 96 (Phi-3-mini), one KV head a query head
+# head dims 80 (Phi-2) and 96 (Phi-3-mini), one KV head a query head;
+# head dim 112 at MPT-30B's 64 over 64 and at the [serve 112] layout (32
+# over 4, G 8)
 WIDE_LAYOUTS = [(96, 8, 128), (128, 8, 128), (64, 4, 128), (232, 8, 64),
-                (32, 32, 80), (32, 32, 96)]
+                (32, 32, 80), (32, 32, 96), (64, 64, 112), (32, 4, 112)]
 
 
 @pytest.mark.gpu
@@ -1547,7 +1558,7 @@ def test_gpu_attention_kernels_at_qwen_head_layouts(cuda, dtype, H, KV, hd):
 # ------------------------------------------------------- the logit soft cap
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", GPU_DTYPES)
-@pytest.mark.parametrize("hd", [64, 80, 96, 128, 256])
+@pytest.mark.parametrize("hd", [64, 80, 96, 112, 128, 256])
 @pytest.mark.parametrize("G", [1, 6, 7, 8, 16])
 @pytest.mark.parametrize("case", ["c30", "saturating"])
 def test_gpu_attention_kernels_capped(cuda, dtype, hd, G, case):
