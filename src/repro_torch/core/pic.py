@@ -40,6 +40,7 @@ from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (
@@ -253,82 +254,89 @@ def pic_prefill(
                      else (shared_mask | priv_mask))
 
         # ---- 1. alignment: ONE rotation of the shared blocks for the group --
-        aligned_k = align_cached_keys(shared_k, shared_src, tgt_pos, theta)
-        if priv_hist is not None:
-            base_layer = _paged_base_layer(priv_hist, aligned_k, shared_v, B,
-                                           theta)
-        else:
-            KV, hd = shared_k.shape[2:]
-            al_priv = pm = None
-            if priv_k is not None:
-                # private caches: per-request rotation, one launch
-                al_priv = align_cached_keys(priv_k, priv_src[:, None],
-                                            tgt_pos[None, None], theta)
-                pm = priv_mask[None, :, None, None]
+        with spans.span("pic.align", dev):
+            aligned_k = align_cached_keys(shared_k, shared_src, tgt_pos, theta)
+            if priv_hist is not None:
+                base_layer = _paged_base_layer(priv_hist, aligned_k, shared_v,
+                                               B, theta)
+            else:
+                KV, hd = shared_k.shape[2:]
+                al_priv = pm = None
+                if priv_k is not None:
+                    # private caches: per-request rotation, one launch
+                    al_priv = align_cached_keys(priv_k, priv_src[:, None],
+                                                tgt_pos[None, None], theta)
+                    pm = priv_mask[None, :, None, None]
 
-            def base_layer(l):
-                k_l = aligned_k[l].expand(B, S, KV, hd).clone()
-                v_l = shared_v[l].expand(B, S, KV, hd).clone()
-                if al_priv is not None:
-                    k_l = torch.where(pm, al_priv[:, l], k_l)
-                    v_l = torch.where(pm, priv_v[:, l], v_l)
-                return k_l, v_l
+                def base_layer(l):
+                    k_l = aligned_k[l].expand(B, S, KV, hd).clone()
+                    v_l = shared_v[l].expand(B, S, KV, hd).clone()
+                    if al_priv is not None:
+                        k_l = torch.where(pm, al_priv[:, l], k_l)
+                        v_l = torch.where(pm, priv_v[:, l], v_l)
+                    return k_l, v_l
 
         # ---- 2. fresh pass over the first check_layer+1 layers --------------
-        h = lookup(params["embed"], tokens).to(shared_k.dtype)
-        positions = tgt_pos.expand(B, S).contiguous()
-        cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim, theta)
-        fresh_k, fresh_v = [], []
-        for l in range(check_layer + 1):
-            h, outs = block_full(h, layer(params, l), cfg, window=S,
-                                 positions=positions, cos=cos, sin=sin,
-                                 shard=shard)
-            fresh_k.append(outs["k"])
-            fresh_v.append(outs["v"])
+        with spans.span("pic.fresh", dev):
+            h = lookup(params["embed"], tokens).to(shared_k.dtype)
+            positions = tgt_pos.expand(B, S).contiguous()
+            cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim, theta)
+            fresh_k, fresh_v = [], []
+            for l in range(check_layer + 1):
+                h, outs = block_full(h, layer(params, l), cfg, window=S,
+                                     positions=positions, cos=cos, sin=sin,
+                                     shard=shard)
+                fresh_k.append(outs["k"])
+                fresh_v.append(outs["v"])
 
         # ---- 3. importance selection on the check layer ---------------------
-        base_chk_k, _ = base_layer(check_layer)
-        dk = fresh_k[check_layer].float() - base_chk_k.float()
-        deviation = (dk * dk).sum(dim=(-1, -2))                   # [B, S]
-        deviation = torch.where(is_cached[None], deviation, 0.0)
-        scores = torch.where(is_cached[None], deviation, BIG)  # fresh win
-        scores[:, S - 1] += 2 * BIG                            # last token
-        if pooled_selection:
-            scores = scores.mean(dim=0, keepdim=True).expand(B, S)
-        if block_select:
-            sel_idx = _select_blocks(scores, n_sel, block_select)
-        else:
-            idx = torch.sort(scores, dim=-1, descending=True,
-                             stable=True).indices[:, :n_sel]
-            sel_idx = torch.sort(idx, dim=-1).values
+        with spans.span("pic.select", dev):
+            base_chk_k, _ = base_layer(check_layer)
+            dk = fresh_k[check_layer].float() - base_chk_k.float()
+            deviation = (dk * dk).sum(dim=(-1, -2))                   # [B, S]
+            deviation = torch.where(is_cached[None], deviation, 0.0)
+            scores = torch.where(is_cached[None], deviation, BIG)  # fresh win
+            scores[:, S - 1] += 2 * BIG                            # last token
+            if pooled_selection:
+                scores = scores.mean(dim=0, keepdim=True).expand(B, S)
+            if block_select:
+                sel_idx = _select_blocks(scores, n_sel, block_select)
+            else:
+                idx = torch.sort(scores, dim=-1, descending=True,
+                                 stable=True).indices[:, :n_sel]
+                sel_idx = torch.sort(idx, dim=-1).values
 
         # ---- 4. selective recomputation through the remaining layers --------
-        rec_ks, rec_vs = [], []
-        gather = sel_idx[:, :, None, None].expand(-1, -1,
-                                                  *fresh_k[0].shape[2:])
-        for l in range(check_layer + 1):
-            bk_l, bv_l = base_layer(l)
-            rec_ks.append(_scatter_rows(bk_l, fresh_k[l].gather(1, gather),
-                                        sel_idx))
-            rec_vs.append(_scatter_rows(bv_l, fresh_v[l].gather(1, gather),
-                                        sel_idx))
+        with spans.span("pic.recompute", dev):
+            rec_ks, rec_vs = [], []
+            gather = sel_idx[:, :, None, None].expand(-1, -1,
+                                                      *fresh_k[0].shape[2:])
+            for l in range(check_layer + 1):
+                bk_l, bv_l = base_layer(l)
+                rec_ks.append(_scatter_rows(bk_l, fresh_k[l].gather(1, gather),
+                                            sel_idx))
+                rec_vs.append(_scatter_rows(bv_l, fresh_v[l].gather(1, gather),
+                                            sel_idx))
 
-        sel_pos = positions.gather(1, sel_idx).contiguous()      # [B, n_sel]
-        cos_sel, sin_sel = rope_cos_sin(sel_pos, cfg.resolved_head_dim, theta)
-        h_sel = h.gather(1, sel_idx[:, :, None].expand(-1, -1, h.shape[-1]))
-        for l in range(check_layer + 1, L):
-            bk_l, bv_l = base_layer(l)
-            h_sel, k_m, v_m = _selective_block(
-                h_sel, layer(params, l), cfg, sel_pos=sel_pos, cos_sel=cos_sel,
-                sin_sel=sin_sel, k_base=bk_l, v_base=bv_l, sel_idx=sel_idx,
-                shard=shard)
-            rec_ks.append(k_m)
-            rec_vs.append(v_m)
+            sel_pos = positions.gather(1, sel_idx).contiguous()  # [B, n_sel]
+            cos_sel, sin_sel = rope_cos_sin(sel_pos, cfg.resolved_head_dim,
+                                            theta)
+            h_sel = h.gather(1, sel_idx[:, :, None].expand(-1, -1,
+                                                           h.shape[-1]))
+            for l in range(check_layer + 1, L):
+                bk_l, bv_l = base_layer(l)
+                h_sel, k_m, v_m = _selective_block(
+                    h_sel, layer(params, l), cfg, sel_pos=sel_pos,
+                    cos_sel=cos_sel, sin_sel=sin_sel, k_base=bk_l,
+                    v_base=bv_l, sel_idx=sel_idx, shard=shard)
+                rec_ks.append(k_m)
+                rec_vs.append(v_m)
 
         # ---- 5. last-token logits -------------------------------------------
-        row = (sel_idx == S - 1).int().argmax(dim=1)
-        h_last = h_sel[torch.arange(B, device=dev), row][:, None]
-        logits = logits_of(params, cfg, h_last, shard)[:, 0]
+        with spans.span("pic.logits", dev):
+            row = (sel_idx == S - 1).int().argmax(dim=1)
+            h_last = h_sel[torch.arange(B, device=dev), row][:, None]
+            logits = logits_of(params, cfg, h_last, shard)[:, 0]
         return PICResult(torch.stack(rec_ks), torch.stack(rec_vs), deviation,
                          sel_idx, logits, h_sel)
 

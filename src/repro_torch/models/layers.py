@@ -28,6 +28,7 @@ from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch import spans
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import rope_freqs
 
@@ -95,7 +96,16 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (the cached KV is f32), and is cast at use, never stored twice. No
     copy when the dtypes agree."""
     dt = torch.promote_types(x.dtype, w.dtype)
-    return x.to(dt) @ w.to(dt)
+    return x.to(dt) @ widen(w, dt)
+
+
+def widen(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Parameter ``w`` in the wider dtype ``dt`` for one use: where the
+    dtypes differ, a cast whose operand bytes (in ``w``'s own dtype) are
+    counted as ``model.cast_bytes`` (``repro_torch.spans``)."""
+    if w.dtype != dt:
+        spans.count("model.cast_bytes", w.nbytes)
+    return w.to(dt)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -104,7 +114,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * (1.0 + scale.float())).to(dt)
+    return (out * (1.0 + widen(scale, torch.float32))).to(dt)
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
@@ -252,7 +262,7 @@ def moe_route(xg: torch.Tensor, router: torch.Tensor, K: int):
     DTensors the logits keep the groups' split, replicated elsewhere, in
     the backward too (DTensor would hand the router's product a strided
     split it cannot shard)."""
-    logits = xg.float() @ router.float()
+    logits = xg.float() @ widen(router, torch.float32)
     if isinstance(logits, DTensor):
         logits = constrain(logits, [Shard(0) if pl == Shard(0) else
                                     Replicate() for pl in xg.placements])
@@ -347,7 +357,7 @@ def moe_block(x: torch.Tensor, p: dict, cfg, group_size: int = 1024,
 
     dt = torch.promote_types(x.dtype, p["w_down"].dtype)
     if isinstance(x_disp, DTensor):
-        wg, wu, wd = (p[w].to(dt) for w in ("w_gate", "w_up", "w_down"))
+        wg, wu, wd = (widen(p[w], dt) for w in ("w_gate", "w_up", "w_down"))
         xd = x_disp.to(dt)
         h = shard(F.silu(_per_expert(xd, wg)) * _per_expert(xd, wu),
                   "moe_ffn")

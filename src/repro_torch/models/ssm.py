@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.models.layers import matmul, rmsnorm
+from repro_torch.models.layers import matmul, rmsnorm, widen
 
 D_CONV = 4  # depthwise conv width
 NEG_INF = -2.0 ** 30
@@ -155,7 +155,7 @@ def mamba2_forward(h: torch.Tensor, p: dict, *, cfg,
     x, Bm, Cm = xbc[..., :di], xbc[..., di : di + n], xbc[..., di + n :]
 
     dt = _softplus(dt.float() + p["dt_bias"])                  # [B, S, nh]
-    A = -torch.exp(p["A_log"].float())                         # [nh]
+    A = -torch.exp(widen(p["A_log"], torch.float32))           # [nh]
     xh = x.reshape(B, S, nh, hp)
     y, final = ssd_chunked(xh * dt[..., None].to(xh.dtype), dt * A, Bm, Cm,
                            cfg.ssm_chunk, init_state)
@@ -180,7 +180,7 @@ def mamba2_decode(h: torch.Tensor, p: dict, *, cfg, state: torch.Tensor,
     x, Bm, Cm = xbc[..., :di], xbc[..., di : di + n], xbc[..., di + n :]
 
     dt = _softplus(dt.float() + p["dt_bias"])                  # [B, nh]
-    A = -torch.exp(p["A_log"].float())
+    A = -torch.exp(widen(p["A_log"], torch.float32))
     xh = x.reshape(B, nh, hp)
     y, new_state = ssd_decode_step(xh * dt[..., None].to(xh.dtype), dt * A,
                                    Bm, Cm, state)

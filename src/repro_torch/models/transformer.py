@@ -59,6 +59,7 @@ from repro_torch.models.layers import (
     project_qkv,
     rmsnorm,
     rope_cos_sin,
+    widen,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -297,7 +298,7 @@ def logits_of(params: dict, cfg: ModelConfig, h: torch.Tensor,
     ``h``'s dtype at use; tagged ``logits``."""
     h = rmsnorm(h, params["final_norm"], cfg.rmsnorm_eps)
     table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return shard((h @ table.to(h.dtype)).float(), "logits")
+    return shard((h @ widen(table, h.dtype)).float(), "logits")
 
 
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,

@@ -34,6 +34,7 @@ deprecated string-keyed shim.
 """
 from __future__ import annotations
 
+import itertools
 import time
 import warnings
 from dataclasses import dataclass, field
@@ -43,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.collector import KVCollector
 from repro_torch.core.rounds import (AgentState, AllGather, AllGatherTrace,
@@ -58,6 +60,7 @@ from repro_torch.serving.pool import HostTier, PoolManager, parse_owner
 from repro_torch.serving.state import RoundStats, Session
 
 MODES = ("recompute", "prefix", "pic", "tokendance")
+_SERIALS = itertools.count()
 
 
 @dataclass
@@ -165,6 +168,8 @@ class ServingEngine:
         policy.bind(self.rt)
         self.policy = policy
         self.mode = policy.name          # the JAX package's alias
+        #: the first part of the request id of this engine's spans
+        self.serial = next(_SERIALS)
         self.round_idx = 0
         self.last_outputs: Dict[str, np.ndarray] = {}
         #: owners the next round's restores read, still to prefetch
@@ -287,11 +292,16 @@ class ServingEngine:
         Dense: a padded ``[L, N, S+G]`` cache (attention KV, SSM state, or
         both) — the loop of SSM/hybrid models and the bit-exact oracle of
         the paged loop."""
-        st = self._decode_begin(first_logits, prefill_cache, N, S, gaids,
-                                use_paged)
-        while not st.done:
-            self._decode_advance(st)
-        return self._decode_finish(st)
+        with spans.span("engine.decode", timed=True) as sp:
+            with spans.span("engine.decode.begin"):
+                st = self._decode_begin(first_logits, prefill_cache, N, S,
+                                        gaids, use_paged)
+            while not st.done:
+                with spans.span("engine.decode.step", self.device, t=st.t):
+                    self._decode_advance(st)
+            with spans.span("engine.decode.finish"):
+                outs, cache, _ = self._decode_finish(st)
+        return outs, cache, sp.host_s
 
     # ------------------------------------------------------------------
     def run_round(self, rnd: Round, plan: Optional[RoundPlan] = None,
@@ -301,6 +311,12 @@ class ServingEngine:
         gather) and may override the topology; ``next_plan``, the
         following round's admission, names the owners whose reload from
         the host tier can overlap this round's decode."""
+        with spans.span("engine.round", engine=self.serial,
+                        round=self.round_idx):
+            return self._run_round(rnd, plan, next_plan)
+
+    def _run_round(self, rnd: Round, plan: Optional[RoundPlan],
+                   next_plan: Optional[RoundPlan]) -> RoundStats:
         # generate mode: previous outputs are this round's shared blocks;
         # an agent with no output yet (deferred since round 0) contributes
         # its trace block instead
@@ -345,7 +361,9 @@ class ServingEngine:
             parts = self._build_prompts(rnd, gaids, sources)
             for pj, (paids, tokens_np, layouts) in enumerate(parts):
                 gid = f"g{gi}" if len(parts) == 1 else f"g{gi}.{pj}"
-                with self.manager.scoped(gid.split(".")[0]):
+                with self.manager.scoped(gid.split(".")[0]), spans.span(
+                        "engine.batch", gid=gid, N=len(paids),
+                        S=tokens_np.shape[1]):
                     rows = self._run_group(gid, paids, tokens_np, layouts,
                                            stats)
                 for a, row, lg in rows:
@@ -395,7 +413,8 @@ class ServingEngine:
                            tokens=tokens_np)
 
         # ---- plan (host, restores) + recover ----------------------------
-        rplan = self.policy.plan(ctx)
+        with spans.span("policy.plan"):
+            rplan = self.policy.plan(ctx)
         res = self.policy.recover(rplan, tokens)
         stats.t_recover += res.t_recover
         stats.t_restore += rplan.t_restore
@@ -434,13 +453,13 @@ class ServingEngine:
         stats.t_decode += dt_dec
 
         # ---- store --------------------------------------------------------
-        t0 = time.perf_counter()
-        for i, a in enumerate(gaids):
-            self.sessions[a].state.extend_history(outputs[i])
-            self.last_outputs[a] = outputs[i]
-        self.policy.store(ctx, cache, outputs, res, stats)
-        sync(self.device)
-        stats.t_store += time.perf_counter() - t0
+        with spans.span("policy.store", timed=True) as sp:
+            for i, a in enumerate(gaids):
+                self.sessions[a].state.extend_history(outputs[i])
+                self.last_outputs[a] = outputs[i]
+            self.policy.store(ctx, cache, outputs, res, stats)
+            sync(self.device)
+        stats.t_store += sp.host_s
         logits_np = (res.logits.float().cpu().numpy() if self.keep_logits
                      else [None] * N)
         return [(a, outputs[i], logits_np[i]) for i, a in enumerate(gaids)]

@@ -16,7 +16,6 @@ mode string, so the engine takes a policy object or its name.
 """
 from __future__ import annotations
 
-import time
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -24,6 +23,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.collector import KVCollector
 from repro_torch.core.segments import PromptLayout, SegmentIndex
@@ -73,16 +73,18 @@ class PolicyRuntime:
     warm: set = field(default_factory=set)
 
     def timed(self, key, fn, *args):
-        """Run ``fn`` once untimed for a new ``key``, then time it (host
+        """Run the recovery ``fn`` once untimed for a new ``key``
+        (``policy.recover.warm``), then time it (``policy.recover``: host
         clock around work that ends in a device synchronise)."""
         if key not in self.warm:
-            fn(*args)
-            sync(self.device)
+            with spans.span("policy.recover.warm"):
+                fn(*args)
+                sync(self.device)
             self.warm.add(key)
-        t0 = time.perf_counter()
-        out = fn(*args)
-        sync(self.device)
-        return out, time.perf_counter() - t0
+        with spans.span("policy.recover", timed=True) as sp:
+            out = fn(*args)
+            sync(self.device)
+        return out, sp.host_s
 
 
 @dataclass

@@ -10,11 +10,10 @@ entries, dense-vs-paged ``priv`` construction — is what
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.collector import PagedPrivate
 from repro_torch.core.pic import n_sel_for_blocks
 from repro_torch.core.segments import (SHARED, PagedSegmentCacheEntry,
@@ -180,17 +179,18 @@ class PICPolicy(ReusePolicy):
         if self.collective:
             key = ("coll", N, S, n_sel, self.paged_attention)
             if key not in rt.warm:
-                rt.collector.collective_reuse(
-                    aids, tokens, sk, sv, src, smask, n_sel, priv,
-                    paged_attention=self.paged_attention)
+                with spans.span("policy.recover.warm"):
+                    rt.collector.collective_reuse(
+                        aids, tokens, sk, sv, src, smask, n_sel, priv,
+                        paged_attention=self.paged_attention)
                 rt.warm.add(key)
             p0 = rt.collector.align_passes
-            t0 = time.perf_counter()
-            res = rt.collector.collective_reuse(
-                aids, tokens, sk, sv, src, smask, n_sel, priv,
-                paged_attention=self.paged_attention)
-            sync(rt.device)
-            dt = time.perf_counter() - t0
+            with spans.span("policy.recover", timed=True) as sp:
+                res = rt.collector.collective_reuse(
+                    aids, tokens, sk, sv, src, smask, n_sel, priv,
+                    paged_attention=self.paged_attention)
+                sync(rt.device)
+            dt = sp.host_s
             k, v, logits = (res.pic.recovered_k, res.pic.recovered_v,
                             res.pic.logits)
             info = {"n_sel": n_sel, "plan": res.plan,
@@ -198,17 +198,19 @@ class PICPolicy(ReusePolicy):
         else:
             key = ("serial", S, n_sel)
             if key not in rt.warm:
-                rt.collector.serial_reuse(
-                    aids[:1], tokens[:1], sk, sv, src, smask, n_sel,
-                    None if priv is None else tuple(
-                        x[:1] if i < 3 else x for i, x in enumerate(priv)))
+                with spans.span("policy.recover.warm"):
+                    rt.collector.serial_reuse(
+                        aids[:1], tokens[:1], sk, sv, src, smask, n_sel,
+                        None if priv is None else tuple(
+                            x[:1] if i < 3 else x
+                            for i, x in enumerate(priv)))
                 rt.warm.add(key)
             p0 = rt.collector.align_passes
-            t0 = time.perf_counter()
-            results = rt.collector.serial_reuse(aids, tokens, sk, sv, src,
-                                                smask, n_sel, priv)
-            sync(rt.device)
-            dt = time.perf_counter() - t0
+            with spans.span("policy.recover", timed=True) as sp:
+                results = rt.collector.serial_reuse(aids, tokens, sk, sv,
+                                                    src, smask, n_sel, priv)
+                sync(rt.device)
+            dt = sp.host_s
             k = torch.cat([r.recovered_k for r in results], dim=1)
             v = torch.cat([r.recovered_v for r in results], dim=1)
             logits = torch.cat([r.logits for r in results], dim=0)

@@ -17,12 +17,12 @@ four give the same outputs bit for bit.
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.diff_store import (MasterCache, _pad_to_blocks,
                                          build_round_family,
                                          compression_stats, trim_family)
@@ -128,38 +128,38 @@ class TokenDancePolicy(PICPolicy):
                 families.setdefault(fam, []).append(a)
         if not families:
             return 0.0, None
-        t0 = time.perf_counter()
-        infos = []
-        for fi, (fam, members) in enumerate(families.items()):
-            master = self.masters[fam]
-            # the restore reads the family's compressed state and each
-            # member's output segment — pull any of it back from the host
-            # tier first
-            fam_owner = self._fam_owner(fam)
-            rt.manager.ensure_resident(f"td:master:{fam_owner}")
-            rt.manager.ensure_resident(f"td:mirrors:{fam_owner}")
-            for a in members:
-                rt.manager.ensure_resident(f"out:{a}")
-            mirrors = [a for a in members if not rt.sessions[a].is_master]
-            # equal-length prompts give every family member the same span
-            span_len = rt.sessions[members[0]].hist_pending[0]
-            assert all(rt.sessions[a].hist_pending[0] == span_len
-                       for a in members)
-            gid = ctx.gid if len(families) == 1 else f"{ctx.gid}.f{fi}"
-            if self.paged_history:
-                info = None
-                if self.incremental:
-                    info = self._restore_incremental(
-                        ctx, fam, master, members, mirrors, span_len)
-                if info is None:
-                    info = self._restore_paged(ctx, gid, master, members,
-                                               mirrors, span_len, fam=fam)
-                infos.append(info)
-            else:
-                infos.append(self._restore_dense(ctx, master, members,
-                                                 mirrors, span_len))
+        with spans.span("policy.restore", timed=True) as sp:
+            infos = []
+            for fi, (fam, members) in enumerate(families.items()):
+                master = self.masters[fam]
+                # the restore reads the family's compressed state and each
+                # member's output segment — pull any of it back from the host
+                # tier first
+                fam_owner = self._fam_owner(fam)
+                rt.manager.ensure_resident(f"td:master:{fam_owner}")
+                rt.manager.ensure_resident(f"td:mirrors:{fam_owner}")
+                for a in members:
+                    rt.manager.ensure_resident(f"out:{a}")
+                mirrors = [a for a in members if not rt.sessions[a].is_master]
+                # equal-length prompts give every family member the same span
+                span_len = rt.sessions[members[0]].hist_pending[0]
+                assert all(rt.sessions[a].hist_pending[0] == span_len
+                           for a in members)
+                gid = ctx.gid if len(families) == 1 else f"{ctx.gid}.f{fi}"
+                if self.paged_history:
+                    info = None
+                    if self.incremental:
+                        info = self._restore_incremental(
+                            ctx, fam, master, members, mirrors, span_len)
+                    if info is None:
+                        info = self._restore_paged(ctx, gid, master, members,
+                                                   mirrors, span_len, fam=fam)
+                    infos.append(info)
+                else:
+                    infos.append(self._restore_dense(ctx, master, members,
+                                                     mirrors, span_len))
         info = infos[0] if len(infos) == 1 else infos
-        return time.perf_counter() - t0, info
+        return sp.host_s, info
 
     def _restore_paged(self, ctx: RoundContext, gid: str,
                        master: MasterCache, pending: list, mirrors: list,
