@@ -4,7 +4,7 @@
 
 Phases (each prints its lines; any failure exits non-zero):
   1. the card (``nvidia-smi`` name and power limit, torch's device name);
-  2. the build of the nine CUDA kernels from the nine sources of
+  2. the build of the ten CUDA kernels from the ten sources of
      ``src/repro_torch/kernels/csrc`` (the attention backward's bf16 and
      f32 instances in two; one ``nvcc`` per source, all at once), with
      ptxas' registers, shared memory and spills;
@@ -264,7 +264,19 @@ Phases (each prints its lines; any failure exits non-zero):
      both kernels on seeded families at bt 64 / hd 256 (f32), bt 128 / hd
      128 (f32), bt 128 / hd 256 (bf16) and Gemma3-12B's heads (KV 8, hd
      256, bt 32, 12 of 48 layers; f32), exact against the plain version
-     in aligned frames, timed.
+     in aligned frames, timed;
+  16. [mixed matmul] ``ops.mixed_matmul`` (f32 activations x a bf16
+     weight, the f32 rounds' linear products) at every product shape of
+     the benchmark's three cells (decode at the batch's rows, recovery's
+     largest fresh and selected calls, lm_head at the batch's rows) and at
+     edge shapes (one row, 17 rows, K and N off every tile), each against
+     the plain product (TF32 off) and twice for the same bits, timed beside
+     the parent's path (the weight cast to f32, then cuBLAS's f32 product)
+     and its bound; inf and NaN in x as in the plain product; the max
+     error against the float64 product at a decode and a recovery shape
+     no more than 1.5 times the parent's path's; a Qwen2.5-7B decode
+     step's 197 products back to back on their own weights (14.14 GB),
+     by the kernel (its launches counted) and by the parent's path.
 The line before the last is the kernel table as JSON; the last line is
 the result as JSON.
 """
@@ -303,6 +315,9 @@ REPLACES = {
     "flash_decode": "src/repro/kernels/flash_decode.py:101",
     "fused_diff_restore": "src/repro/kernels/diff_restore.py:116",
     "fused_family_restore": "src/repro/kernels/diff_restore.py:190",
+    # no TPU kernel: the JAX package's einsums of an f32 activation and a
+    # bf16 weight go through XLA
+    "mixed_matmul": "none (XLA einsum, src/repro/models/layers.py:211)",
 }
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
 SOURCES.update(
@@ -332,12 +347,15 @@ class Timer:
         self.flush = torch.empty(16 * 2 ** 20, dtype=torch.float32,
                                  device=dev)
 
+    def evict(self):
+        self.flush.zero_()
+
     def __call__(self, fn, reps=15, warm=2):
         for _ in range(warm):
             fn()
         pairs = []
         for _ in range(reps):
-            self.flush.zero_()
+            self.evict()
             torch.cuda._sleep(self.SPIN)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -362,6 +380,16 @@ class Timer:
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         return (t1 - t0) / n * 1e6
+
+
+class ReadTimer(Timer):
+    """A :class:`Timer` that evicts the L2 cache by reading its 64 MB, not
+    by writing them: a write leaves up to the cache's 50 MB dirty, and the
+    timed call pays their write-back to HBM as it streams its own bytes
+    (+37 % on a 136 MB weight read at decode, the mixed product's)."""
+
+    def evict(self):
+        self.flush.sum()
 
 
 def nbytes(*ts):
@@ -697,7 +725,8 @@ def main_path(dev):
         f"incrementally: {r2['pool_pages']} pages written, "
         f"{r2['pages_reused']} reused, of {r2['full_write_pages']} unshared")
     missing = [k for k in ("rope_align", "block_diff", "flash_prefill",
-                           "flash_decode_paged") if launches[k] == 0]
+                           "flash_decode_paged", "mixed_matmul")
+               if launches[k] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     priv = captured["priv"]
     assert priv.fast_path_ok(), "round 2's paged history is not paged"
@@ -1349,7 +1378,8 @@ def continuous(qwen):
     assert res.makespan_steps < res.sync_makespan_steps, res.makespan_steps
     assert res.overlap_steps > 0 and res.restore_overlap_events > 0
     missing = [k for k in ("rope_align", "block_diff", "flash_prefill",
-                           "flash_decode_paged") if launches[k] == 0]
+                           "flash_decode_paged", "mixed_matmul")
+               if launches[k] == 0]
     assert not missing, f"kernels never launched: {missing}"
     assert not any(plain.values()), f"plain versions ran: {plain}"
     cont.engine.manager.check()
@@ -1409,7 +1439,8 @@ def pages_phase(dev, qwen):
         stats, launches, rec = serve_phase(tag, engine, trace, ops)
         del engine
         missing = [k for k in ("rope_align", "block_diff", "flash_prefill",
-                               "flash_decode_paged") if launches[k] == 0]
+                               "flash_decode_paged", "mixed_matmul")
+                   if launches[k] == 0]
         assert not missing, f"kernels never launched at {tag}: {missing}"
         for st in stats:
             assert st.prompt_len % bs == 0, (tag, st.prompt_len)
@@ -1879,7 +1910,8 @@ def heads_serve(dev):
         stats, launches, _ = serve_phase(tag, engine, trace, ops)
         del engine
         missing = [k for k in ("rope_align", "block_diff", "flash_prefill",
-                               "flash_decode_paged") if launches[k] == 0]
+                               "flash_decode_paged", "mixed_matmul")
+                   if launches[k] == 0]
         assert not missing, f"kernels never launched at {tag}: {missing}"
         for st in stats:
             assert st.outputs.shape == (8, 32), st.outputs.shape
@@ -3628,6 +3660,227 @@ def restore_shapes(dev):
     say(f"[restore shapes] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------- [mixed matmul]
+#: (model, d_model, d_ff, KV * hd, vocab) of the benchmark's two models
+MIXED_MODELS = (("qwen2.5-7b", 3584, 18944, 512, 152064),
+                ("qwen2.5-14b", 5120, 13824, 1024, 152064))
+#: the rows of each cell's f32 products: decode (the batch), recovery's
+#: largest fresh call (B x S) and largest selected call (B x n_sel)
+MIXED_CELLS = (("qwen2.5-7b.society-a32", "qwen2.5-7b", 16, 22528, 4096),
+               ("qwen2.5-14b.society-a16", "qwen2.5-14b", 8, 7168, 1536),
+               ("qwen2.5-7b.genagents-a8", "qwen2.5-7b", 8, 4864, 1024))
+#: (M, K, N) off the cells' shapes: one row, 17 rows (past the streaming
+#: tile), ragged K and N (multiples of 8, not of any tile)
+MIXED_EDGES = ((1, 3584, 512), (17, 1024, 1000), (64, 1000, 520),
+               (65, 3584, 3584), (16, 200, 4104), (300, 4104, 200))
+
+
+def mixed_bound(M, K, N):
+    """The least time of an [M, K] x [K, N] mixed product in ms, and what
+    sets it: the bf16 weight, f32 x and f32 out moved once at 3.35 TB/s,
+    or three bf16 products at 989 TFLOP/s."""
+    n_bytes = 2 * K * N + 4 * M * K + 4 * M * N
+    flops = 2 * M * K * N
+    t_b, t_f = n_bytes / HBM_BYTES_PER_S, 3 * flops / PEAK_FLOPS[
+        torch.bfloat16]
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def mixed_step(dev, g, M):
+    """CUDA-event time of a Qwen2.5-7B decode step's products back to back
+    (wq, wk, wv, wo, gate, up, down on each of 28 layers' own seeded
+    weights, then lm_head: 14.14 GB of bf16, so each product reads its
+    weight from HBM), by the kernel and by the parent's path. The device
+    sleeps first while the host enqueues the step, so the events time
+    the device's work, not the host's launches. Median of 5; with the
+    kernel's launches in one step, counted."""
+    from repro_torch.kernels import ops
+
+    _, D, F_, KVH, V = MIXED_MODELS[0]
+    shapes = ((D, D), (D, KVH), (D, KVH), (D, D), (D, F_), (D, F_), (F_, D))
+    ws = [[(torch.randn(K, N, generator=g, device=dev) * 0.02).bfloat16()
+           for K, N in shapes] for _ in range(28)]
+    head = (torch.randn(D, V, generator=g, device=dev) * 0.02).bfloat16()
+    xd = torch.randn(M, D, generator=g, device=dev)
+    xf = torch.randn(M, F_, generator=g, device=dev)
+    flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device=dev)
+
+    def run(prod):
+        for layer in ws:
+            for w in layer[:6]:
+                prod(xd, w)
+            prod(xf, layer[6])
+        prod(xd, head)
+
+    n0 = ops.LAUNCHES["mixed_matmul"]
+    run(ops.mixed_matmul)
+    launches = ops.LAUNCHES["mixed_matmul"] - n0
+    times = {}
+    for name, prod in (("kernel", ops.mixed_matmul),
+                       ("parent", lambda x, w: x @ w.float())):
+        run(prod)
+        got = []
+        for _ in range(5):
+            flush.sum()
+            torch.cuda._sleep(40_000_000)       # ~23 ms at 1.75 GHz
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            run(prod)
+            e.record()
+            e.synchronize()
+            got.append(s.elapsed_time(e))
+        times[name] = statistics.median(got)
+    w_bytes = 2 * (sum(w.numel() for w in ws[0]) * 28 + head.numel())
+    del ws, head
+    return times, w_bytes, launches
+
+
+def mixed_case(timer, g, M, K, N, timed=True):
+    """One mixed product on seeded inputs: the kernel against the plain
+    product (TF32 off), twice for the same bits; with ``timed`` its time,
+    the parent's path's (the weight cast to f32, then cuBLAS's f32
+    product) and its bound."""
+    from repro_torch.kernels import ops, ref
+
+    dev = g.device
+    x = torch.randn(M, K, generator=g, device=dev)
+    w = (torch.randn(K, N, generator=g, device=dev) * K ** -0.5).bfloat16()
+    got = ops.mixed_matmul(x, w)
+    assert torch.equal(got, ops.mixed_matmul(x, w)), (M, K, N)
+    want = ref.mixed_matmul_ref(x, w)
+    err = check("mixed_matmul", got, want, torch.float32)
+    r = dict(M=M, K=K, N=N, err=err)
+    if timed:
+        r.update(ms=timer(lambda: ops.mixed_matmul(x, w)),
+                 parent_ms=timer(lambda: x @ w.float()))
+        r["bound_ms"], r["bound_by"] = mixed_bound(M, K, N)
+    return r
+
+
+#: (M, K, N) where the mixed product's error against the float64 product
+#: is held to cuBLAS f32's: a decode step's down projection, a recovery's
+#: wq
+MIXED_EXACT = ((16, 18944, 3584), (4096, 3584, 3584))
+
+
+def mixed_exactness(g, M, K, N):
+    """Max abs error against the product in float64 of the kernel and of
+    the parent's path (the weight cast to f32, cuBLAS's f32 product, TF32
+    off) on seeded inputs, and the largest sum of |x| |w| of an output."""
+    from repro_torch.kernels import ops
+
+    dev = g.device
+    x = torch.randn(M, K, generator=g, device=dev)
+    w = (torch.randn(K, N, generator=g, device=dev) * K ** -0.5).bfloat16()
+    exact = x.double() @ w.double()
+    scale = (x.double().abs() @ w.double().abs()).max().item()
+    errs = [(got.double() - exact).abs().max().item()
+            for got in (ops.mixed_matmul(x, w), x @ w.float())]
+    return errs[0], errs[1], scale
+
+
+def mixed_phase(dev):
+    """[mixed matmul]: ``ops.mixed_matmul`` at every f32 product shape of
+    the benchmark's three cells (decode at the batch's rows, recovery at
+    its largest fresh and selected calls; lm_head at the batch's rows)
+    and at edge shapes: each against the plain product and twice for
+    the same bits, timed beside the parent's cast-plus-cuBLAS path on the
+    same inputs and its bound; inf and NaN in x propagate as in the
+    plain product; at ``MIXED_EXACT`` no further from the float64
+    product than 1.5 times the parent's path. Then the sum of a 7B decode
+    step's products (7 a layer x 28 layers + lm_head) against the bound
+    of its weight bytes.
+    Returns the kernel table's row (the 7B decode step)."""
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    timer = ReadTimer(dev)
+    g = torch.Generator(device=dev).manual_seed(33)
+    t_phase = time.perf_counter()
+    for M, K, N in MIXED_EDGES:
+        r = mixed_case(timer, g, M, K, N, timed=False)
+        say(f"[mixed matmul] edge M {M} K {K} N {N}: max abs err "
+            f"{r['err']:.3g}, bit-equal twice")
+    x = torch.randn(24, 1024, generator=g, device=dev)
+    x[3, 5], x[7, 0], x[20, 1000] = float("inf"), float("nan"), \
+        -float("inf")
+    w = (torch.randn(1024, 256, generator=g, device=dev) * 0.03).bfloat16()
+    for rows in (x[:16], x):
+        got, want = ops.mixed_matmul(rows, w), rows @ w.float()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        fin = torch.isfinite(want)
+        assert torch.allclose(got[fin], want[fin], atol=1e-4, rtol=1e-4)
+    say("[mixed matmul] inf and NaN in x: the plain product's inf and NaN "
+        "cells, both tiles")
+    # no less exact than the f32 product it replaces: a split of x into two
+    # bf16 parts (16 bits) or split TF32 (22) would miss this by far
+    for M, K, N in MIXED_EXACT:
+        err, cublas, scale = mixed_exactness(g, M, K, N)
+        say(f"[mixed matmul] exactness M {M} K {K} N {N}: max abs err "
+            f"against float64 {err:.3g} (parent path {cublas:.3g}; "
+            f"{err / scale:.3g} of the largest sum of |x| |w|)")
+        assert err <= 1.5 * cublas, (M, K, N, err, cublas)
+    step = {}
+    rows = []
+    for cell, model, dec, fresh, sel in MIXED_CELLS:
+        _, D, F_, KVH, V = next(m for m in MIXED_MODELS if m[0] == model)
+        prods = {"wq/wo": (D, D), "wk/wv": (D, KVH), "gate/up": (D, F_),
+                 "down": (F_, D)}
+        for M in (dec, fresh, sel):
+            for name, (K, N) in prods.items():
+                key = (model, M, K, N)
+                if key in step:
+                    continue
+                r = mixed_case(timer, g, M, K, N)
+                step[key] = r
+                rows.append(r)
+                say(f"[mixed matmul] {cell} {name} M {M} K {K} N {N}: "
+                    f"{r['ms']:.4f} ms (parent path {r['parent_ms']:.4f}, "
+                    f"bound {r['bound_ms']:.4f} by {r['bound_by']}, "
+                    f"{r['bound_ms'] / r['ms'] * 100:.1f} % of it), max "
+                    f"abs err {r['err']:.3g}")
+                assert r["ms"] < r["parent_ms"], r
+        key = (model, dec, D, V)
+        if key not in step:
+            r = mixed_case(timer, g, dec, D, V)
+            step[key] = r
+            rows.append(r)
+            say(f"[mixed matmul] {cell} lm_head M {dec} K {D} N {V}: "
+                f"{r['ms']:.4f} ms (parent path {r['parent_ms']:.4f}, bound "
+                f"{r['bound_ms']:.4f} by {r['bound_by']}, "
+                f"{r['bound_ms'] / r['ms'] * 100:.1f} % of it), max abs err "
+                f"{r['err']:.3g}")
+            assert r["ms"] < r["parent_ms"], r
+    # one 7B decode step: wq, wk, wv, wo, gate, up, down a layer, lm_head
+    _, D, F_, KVH, V = MIXED_MODELS[0]
+    layer = ((D, D), (D, KVH), (D, KVH), (D, D), (D, F_), (D, F_), (F_, D))
+    for M in (16, 8):
+        summed = 28 * sum(step[("qwen2.5-7b", M, K, N)]["ms"]
+                          for K, N in layer)
+        summed += step[("qwen2.5-7b", M, D, V)]["ms"]
+        t, w_bytes, launches = mixed_step(dev, g, M)
+        assert launches == 28 * 7 + 1, launches
+        ms, parent = t["kernel"], t["parent"]
+        b_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+        say(f"[mixed matmul] qwen2.5-7b decode step at M {M}: the products "
+            f"back to back {ms:.3f} ms (parent path {parent:.3f}; the "
+            f"single calls' times summed {summed:.3f}), bound of the "
+            f"{w_bytes / 1e9:.2f} GB of weights {b_ms:.3f} ms, "
+            f"{b_ms / ms * 100:.1f} % of it; {launches} launches")
+        if M == 16:
+            row = dict(name="mixed_matmul", call="7B decode step, M 16",
+                       shape="28 x 7 products + lm_head, Qwen2.5-7B", ms=ms,
+                       plain_ms=parent, library_ms=None, bound_ms=b_ms,
+                       bound_by="bytes", max_abs_err=max(
+                           r["err"] for r in rows),
+                       max_abs_err_f32=max(r["err"] for r in rows),
+                       launches=launches)
+    say(f"[mixed matmul] phase {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
 def restore(dev):
     """[restore]: the storage walkthrough at Qwen2.5-7B (blocks of 32) and
     at Gemma3-1B (head dim 256, f32 recovery, blocks of 64: 2048 (token,
@@ -3718,6 +3971,7 @@ def main() -> int:
     launch_phase(dev)
     smoke_parity(dev)
     table += table_rows(restore(dev))
+    table += table_rows([mixed_phase(dev)])
     say(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
     say(smi)
     print(json.dumps({"kernels": table}), flush=True)

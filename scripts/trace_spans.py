@@ -13,9 +13,12 @@ name and power limit:
             (no profiler, no benchmark ranges): the median round wall time
             of each, and each round index's mean on / off;
   spans     from the traced episodes: the six per-layer quantities beside
-            the phase timers' metrics of the same rounds, each round's
-            share of host time in the direct children of ``engine.round``,
-            and each batch's time to its first token as its spans add it
+            the phase timers' metrics of the same rounds,
+            ``model.mixed_bytes`` an output token and its share of the
+            weight bytes cast or read by the mixed-precision kernel, each
+            round's share of host time in the direct children of
+            ``engine.round``, and each batch's time to its first token as
+            its spans add it
             up over the benchmark's CUDA-event reading;
   profile   one more episode as a ``--trace 1`` run makes it (the
             benchmark's ranges; rounds 1-2 under ``torch.profiler``) with
@@ -63,6 +66,20 @@ def without(prof, names):
         kineto_results=SimpleNamespace(events=lambda: evs)))
 
 
+def mixed_counters(spanview, traced) -> dict:
+    """``model.mixed_bytes`` (the bf16 weight bytes the mixed-precision
+    kernel read) as GiB an output token over the rounds
+    ``cast_gib_per_token`` reads, and its share of ``mixed_bytes +
+    cast_bytes`` (the kernel's engagement), in %."""
+    rs = spanview._outside(traced)
+    tokens = sum(t.rec.n_agents * t.rec.G for t in rs)
+    mixed = sum(t.counters.get("model.mixed_bytes", 0) for t in rs)
+    cast = sum(t.counters.get("model.cast_bytes", 0) for t in rs)
+    return {"mixed_gib_per_token": mixed / 2**30 / tokens if tokens else None,
+            "mixed_share_pct": 100 * mixed / (mixed + cast)
+            if mixed + cast else None}
+
+
 def read_fields(summary: dict) -> dict:
     """What the benchmark's profile metrics read of a summary."""
     if not summary:
@@ -105,7 +122,8 @@ def main(argv=None) -> int:
         spec = run.manifest_cell(a.workload)
         c, traffic = load_config(spec["config"]), Traffic.load(spec["traffic"])
         build.build_all(("rope_align", "block_diff", "flash_prefill",
-                         "flash_decode_paged", "diff_restore"))
+                         "flash_decode_paged", "diff_restore",
+                         "mixed_matmul"))
         card = f"{torch.cuda.get_device_name(0)}; {run.card_line()}"
     s = sizes(c)
     cfg = episode.model_config(c)
@@ -156,6 +174,7 @@ def main(argv=None) -> int:
         "recover_warm_ms", "recover_fresh_ms", "recover_recompute_ms",
         "decode_gap_p95_ms", "cast_gib_per_token")}
     out_spans["decode_gap_samples"] = len(spanview.decode_gaps_ms(traced))
+    out_spans.update(mixed_counters(spanview, traced))
     for m in ("recover_ms", "restore_ms", "decode_step_ms", "store_ms"):
         out_spans[m] = run.reader(m)(record)
     cover = [x for t in traced for x in spanview.coverage(t.spans)] or [0]

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("rope_align", "block_diff", "flash_prefill", "flash_prefill_bwd",
            "flash_prefill_bwd_f32", "flash_prefill_paged",
-           "flash_decode_paged", "flash_decode", "diff_restore")
+           "flash_decode_paged", "flash_decode", "diff_restore",
+           "mixed_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -60,10 +61,14 @@ SIGNATURES = {
                            [_P] * 10 + [_I] * 8 + [_P]),
     "fused_family_restore": ("fused_family_restore_launch",
                              [_P] * 10 + [_I] * 9 + [_P]),
+    "mixed_matmul": ("mixed_matmul_launch", [_P] * 5 + [_I] * 4 + [_P]),
+    # not a kernel: the mixed product's launch plan, for its scratch
+    "mixed_matmul_plan": ("mixed_matmul_plan", [_I] * 4 + [_P]),
 }
 #: the source each kernel's launch function is compiled from
 LIBRARY = {"fused_diff_restore": "diff_restore",
-           "fused_family_restore": "diff_restore"}
+           "fused_family_restore": "diff_restore",
+           "mixed_matmul_plan": "mixed_matmul"}
 
 
 def nvcc() -> str:

@@ -10,12 +10,16 @@ contiguity) raises, and so does a launch the CUDA runtime refuses.
 Every wrapper allocates its output with ``torch.empty`` (the two restore
 wrappers write into the pools they are given, in place, as the TPU
 kernels alias theirs; ``block_diff``'s is ``torch.zeros``, which its
-blocks combine into by ``atomicMax``; the two decode wrappers also
-allocate their splits' f32 scratch, and keep the splits' tickets per
-stream),
+blocks combine into by ``atomicMax``; the two decode wrappers, and
+``mixed_matmul`` where blocks share an output tile, also allocate their
+splits' f32 scratch, and keep the splits' tickets per stream),
 launches on the current stream without synchronising, and adds one to
 ``LAUNCHES[<kernel>]`` where — and only where — it launches the kernel,
 so a run can show that its path went through each kernel.
+
+``mixed_matmul`` (f32 activations times a bf16 weight, on the tensor
+cores) takes no grad: ``models.layers.mixed_ok`` sends it only products
+that autograd does not record.
 
 ``flash_attention`` is differentiable: a call with grad goes through
 :class:`FlashAttention`, whose backward is ``flash_attention_bwd`` (the
@@ -25,6 +29,7 @@ decode wrappers have no backward: no gradient reaches them.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict, Optional, Tuple
 
@@ -39,7 +44,7 @@ LAUNCHES: Dict[str, int] = {"rope_align": 0, "block_diff": 0,
                             "flash_prefill_paged": 0,
                             "flash_decode_paged": 0, "flash_decode": 0,
                             "fused_diff_restore": 0,
-                            "fused_family_restore": 0}
+                            "fused_family_restore": 0, "mixed_matmul": 0}
 #: calls each wrapper answered with its plain version (CPU tensors)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
@@ -682,3 +687,77 @@ def fused_family_restore(master_k, master_v, diff_k, diff_v, diff_slot,
 def _lead(a):
     """One leading axis on an index map (array-like or tensor)."""
     return a[None] if torch.is_tensor(a) else np.asarray(a)[None]
+
+
+# --------------------------------------------------------------------------
+#: the tickets of the mixed product's split tiles, per (device, stream)
+_MIXED_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+#: (SMs, scratch floats, tickets) of a mixed product by (device, M, N, K):
+#: the library's plan (``mixed_matmul_plan``; ``csrc/mixed_matmul.cu``
+#: owns the tiles and the split of the work)
+_MIXED_PLANS: Dict[Tuple, Tuple[int, int, int]] = {}
+
+
+def _mixed_plan(dev, M: int, N: int, K: int) -> Tuple[int, int, int]:
+    """(SMs, scratch floats, tickets) of an [M, K] x [K, N] mixed product
+    on ``dev``, from the library, cached by shape."""
+    key = (dev, M, N, K)
+    plan = _MIXED_PLANS.get(key)
+    if plan is None:
+        from repro_torch.kernels.build import launcher
+
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        out = (ctypes.c_longlong * 2)()
+        rc = launcher("mixed_matmul_plan")(M, N, K, sms, out)
+        if rc != 0:
+            raise RuntimeError(f"mixed_matmul plan failed: CUDA error {rc}")
+        plan = _MIXED_PLANS[key] = (sms, out[0], out[1])
+    return plan
+
+
+def mixed_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` of f32 activations ``[..., K]`` and a bf16 weight ``[K,
+    N]`` (row-major, contiguous, K and N multiples of 8), in f32: ONE
+    launch, the weight read as it is stored (no f32 copy of it), each
+    activation split exactly into three bf16 parts on the tensor cores
+    (``ref.split_bf16x3``), so the result is the f32 product up to
+    summation order. Where blocks share an output tile's K range the
+    kernel adds their partial sums in a fixed order: two calls give the
+    same bits. Returns ``[..., N]``. Every decode step calls it ~200
+    times, so its host path is kept short: the launch plan is cached by
+    shape."""
+    if not x.is_cuda and not w.is_cuda:
+        PLAIN_CALLS["mixed_matmul"] += 1
+        return ref.mixed_matmul_ref(x, w)
+    if not (x.is_cuda and w.is_cuda) or x.get_device() != w.get_device():
+        raise ValueError("tensors must all lie on the CPU or on one CUDA "
+                         "device")
+    _check("w", w, dtype=torch.bfloat16, ndim=2)
+    K, N = w.shape
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be torch.float32, got {x.dtype}")
+    if x.dim() < 1 or x.shape[-1] != K or K % 8 or N % 8:
+        raise ValueError(f"bad mixed_matmul shapes x={tuple(x.shape)} "
+                         f"w={tuple(w.shape)}: K, N multiples of 8")
+    if w.data_ptr() % 16:
+        raise ValueError("w must be 16-byte aligned")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.clone(memory_format=torch.contiguous_format)
+    M = x.numel() // K
+    dev = x.device
+    sms, n_part, n_tickets = _mixed_plan(dev, M, N, K)
+    out = torch.empty((*x.shape[:-1], N), dtype=torch.float32, device=dev)
+    stream = _stream(x)
+    part = tickets = None
+    if n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=dev)
+        tickets = _MIXED_TICKETS.get((dev, stream))
+        if tickets is None or tickets.numel() < n_tickets:
+            tickets = torch.zeros(max(n_tickets, 4096), dtype=torch.int32,
+                                  device=dev)
+            _MIXED_TICKETS[(dev, stream)] = tickets
+    _launch("mixed_matmul", x.data_ptr(), w.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), M, N, K, sms,
+            stream)
+    return out

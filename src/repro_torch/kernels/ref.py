@@ -350,3 +350,27 @@ def flash_decode_paged_ref(q: torch.Tensor, pool_k: torch.Tensor,
     if window:
         valid = valid & (span + tl - 1 - pos < window)
     return _decode_attend(q, k, v, valid, scale, softcap)
+
+
+def mixed_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` of f32 activations ``[..., K]`` and a bf16 weight ``[K,
+    N]`` in f32: the weight widened (exactly) and one f32 product."""
+    return x @ w.float()
+
+
+def split_bf16x3(x: torch.Tensor):
+    """The mixed-precision kernel's split of f32 ``x`` into three bf16
+    parts, by truncation: x0 the upper 16 bits of x, x1 those of x - x0,
+    x2 = x - x0 - x1 (both subtractions exact in f32, x2 exact in bf16).
+    ``x0 + x1 + x2 == x`` for every x that is a multiple of 2^-133 (bf16's
+    least subnormal; every |x| >= 2^-110); below that the parts lose what
+    lies under it. For inf and NaN, x1 = x2 = 0."""
+    def upper(v):
+        return (v.view(torch.int32) & -65536).view(torch.float32)
+
+    x = x.float()
+    x0 = upper(x)
+    r1 = torch.where(torch.isfinite(x), x - x0, torch.zeros_like(x))
+    x1 = upper(r1)
+    x2 = upper(r1 - x1)
+    return x0.bfloat16(), x1.bfloat16(), x2.bfloat16()

@@ -93,10 +93,35 @@ def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in the dtype jnp's promotion gives the JAX package's
     einsum: a bf16 weight meets f32 activations in collective recovery
-    (the cached KV is f32), and is cast at use, never stored twice. No
-    copy when the dtypes agree."""
+    (the cached KV is f32). Where :func:`mixed_ok` holds,
+    ``ops.mixed_matmul`` reads the bf16 weight as it is stored, its bytes
+    counted as ``model.mixed_bytes`` (``repro_torch.spans``); any other
+    product casts the weight at use, never storing it twice. No copy when
+    the dtypes agree."""
+    if mixed_ok(x, w):
+        spans.count("model.mixed_bytes", w.nbytes)
+        return ops.mixed_matmul(x, w)
     dt = torch.promote_types(x.dtype, w.dtype)
     return x.to(dt) @ widen(w, dt)
+
+
+def mixed_ok(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """True where ``x @ w`` goes to ``ops.mixed_matmul``, the f32 x bf16
+    product on the tensor cores: ``x`` an f32 CUDA tensor and ``w`` a 2-D
+    bf16 CUDA tensor; neither a DTensor; no operand requiring grad while
+    grad mode is on (the kernel has no backward); ``w`` contiguous and
+    16-byte aligned; K (``w``'s rows, ``x``'s last dim) and N multiples
+    of 8. Every other product keeps the cast at use: bf16 x bf16 (round
+    0), training, DTensors, the tied ``embed.T`` (not contiguous); the
+    MoE router (``moe_route``) does not come here."""
+    return (x.dtype == torch.float32 and w.dtype == torch.bfloat16
+            and x.is_cuda and w.is_cuda and w.dim() == 2
+            and not isinstance(x, DTensor) and not isinstance(w, DTensor)
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or w.requires_grad))
+            and w.is_contiguous() and w.data_ptr() % 16 == 0
+            and x.shape[-1] == w.shape[0]
+            and w.shape[0] % 8 == 0 and w.shape[1] % 8 == 0)
 
 
 def widen(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:

@@ -54,12 +54,12 @@ from repro_torch.models.layers import (
     attention,
     feed_forward,
     lookup,
+    matmul,
     noshard,
     out_proj,
     project_qkv,
     rmsnorm,
     rope_cos_sin,
-    widen,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -294,11 +294,11 @@ def _mix(a_out, s_out, p: dict, cfg: ModelConfig):
 def logits_of(params: dict, cfg: ModelConfig, h: torch.Tensor,
               shard=noshard) -> torch.Tensor:
     """f32 logits of the hidden state: the final norm, then ``lm_head``, or
-    ``embed.T`` with ``cfg.tie_embeddings`` (JAX's ``_logits``), cast to
-    ``h``'s dtype at use; tagged ``logits``."""
+    ``embed.T`` with ``cfg.tie_embeddings`` (JAX's ``_logits``), by
+    ``layers.matmul``; tagged ``logits``."""
     h = rmsnorm(h, params["final_norm"], cfg.rmsnorm_eps)
     table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return shard((h @ widen(table, h.dtype)).float(), "logits")
+    return shard(matmul(h, table).float(), "logits")
 
 
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,

@@ -46,8 +46,15 @@ Span names (``NAMES``) and what each covers:
 Counters (``COUNTERS``):
 
   model.cast_bytes      bytes of parameters, in their own dtype, cast to a
-                        wider dtype where they are used (a bf16 weight
-                        meeting the f32 activations of a recovered round)
+                        wider dtype where they are used (a norm scale, or a
+                        bf16 weight meeting f32 activations in a product
+                        ``models.layers.mixed_ok`` refuses)
+  model.mixed_bytes     bf16 bytes of the weights the mixed-precision
+                        kernel read as stored (``ops.mixed_matmul``: a
+                        bf16 weight meeting the f32 activations of a
+                        recovered round, with no cast); its share of
+                        ``mixed_bytes + cast_bytes`` is the kernel's
+                        engagement
 """
 from __future__ import annotations
 
@@ -62,7 +69,7 @@ NAMES = ("engine.round", "engine.batch", "policy.plan", "policy.restore",
          "pic.select", "pic.recompute", "pic.logits", "engine.decode",
          "engine.decode.begin", "engine.decode.step", "engine.decode.finish",
          "policy.store")
-COUNTERS = ("model.cast_bytes",)
+COUNTERS = ("model.cast_bytes", "model.mixed_bytes")
 #: the attributes a span's request id is made of, outermost first
 REQUEST = ("engine", "round", "gid")
 
